@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Counterpart of crackle_tpu/kernels/__init__.py (the JAX compile
+cache). At first use, every ``crackle_tpu_torch/csrc/*.cu`` is compiled
+by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
+interface, which is loaded through ``ctypes``. No PyTorch header is
+included, so the build takes seconds. The library lands in the
+checkout's ``build/`` directory under a name that hashes the sources,
+so an edited source never loads a stale build.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises when that is not 0.
+"""
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "crackle_tpu_torch")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# kernel name -> launches since the last reset_launches(); each wrapper
+# adds one where it launches its kernel and nowhere else
+LAUNCHES = {"replay_keys": 0, "replay_positions": 0, "paint_vcg": 0,
+            "ccl_paint": 0}
+
+# wall seconds the last build took (0.0 when it was found built)
+build_seconds = 0.0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+  # packed, nbytes, n_chains, keys, cls, B, CAP_B, tile, stream
+  "replay_keys_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+  # skeys, cls, nodes, cancel, ids, B, CAP, CAP_CH, sx, sy, tile, stream
+  "replay_positions_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P],
+  # ids, vcg, B, CAP, sx, sy, permissible, stream
+  "paint_vcg_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+  # vcg, T, L, cc, N, painted, B, sx, sy, K, cap_n, stream
+  "ccl_paint_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches():
+  for k in LAUNCHES:
+    LAUNCHES[k] = 0
+
+
+def _sources():
+  return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc():
+  home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+  path = os.path.join(home, "bin", "nvcc")
+  return path if os.path.exists(path) else "nvcc"
+
+
+@functools.lru_cache(maxsize=1)
+def library():
+  """The loaded kernel library, compiled first if needed."""
+  global build_seconds
+  srcs = _sources()
+  h = hashlib.sha256()
+  for s in srcs:
+    with open(s, "rb") as f:
+      h.update(os.path.basename(s).encode() + b"\0" + f.read())
+  so = os.path.join(BUILD_DIR, f"libcrackle_kernels_{h.hexdigest()[:16]}.so")
+  if not os.path.exists(so):
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = ([_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp]
+           + [s for s in srcs if s.endswith(".cu")])
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    if res.returncode != 0:
+      raise RuntimeError(
+        f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    os.replace(tmp, so)
+  lib = ctypes.CDLL(so)
+  for name, argtypes in _SIGNATURES.items():
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+  return lib
+
+
+def check(name: str, err: int):
+  if err != 0:
+    raise RuntimeError(f"{name}: CUDA error {err} at launch")

@@ -1,0 +1,322 @@
+"""Crack-code replay: packed 2-bit moves -> 4-bit VCG, per slice.
+
+Counterpart of crackle_tpu/kernels/replay_pallas.py (slices up to 511
+wide) and replay_big.py (wider slices, longer streams): one replay
+serves both shape classes. Three kernels, with a sort between the
+first two (csrc/replay.cu):
+
+  replay_keys       packed diffs -> sort keys + cls words
+  torch.sort        keys ascending per slice
+  replay_positions  sorted keys + cls -> masked edge ids
+  paint_vcg         edge ids -> VCG (B, sy, sx) int32
+
+Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
+version for CPU tensors. The plain versions follow
+decode._decode_vcg_batch, with scatter_add_/scatter_ where JAX used
+one-hot matmuls, and walk the stream in tiles of TILE codepoints with
+the same carries as the kernels, so shrinking TILE exercises the
+carries on small streams.
+"""
+import torch
+
+from . import _build
+
+# codepoints per tile: the kernels' block size, and the plain versions'
+# tile; a power of two in [32, 1024]
+TILE = 1024
+
+INF = torch.iinfo(torch.int64).max
+
+UP, RIGHT, DOWN, LEFT = 0, 1, 2, 3
+
+
+def _check(name, t, dtype, ndim):
+  if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+    raise ValueError(
+      f"{name}: want a contiguous {ndim}-d {dtype} tensor, got "
+      f"{tuple(t.shape)} {t.dtype} contiguous={t.is_contiguous()}")
+
+
+def _same_device(name, *ts):
+  dev = ts[0].device
+  if any(t.device != dev for t in ts):
+    raise ValueError(f"{name}: tensors on different devices")
+  return dev.type == "cuda"
+
+
+def _tile(CAP: int) -> int:
+  if TILE < 32 or TILE > 1024 or TILE & (TILE - 1):
+    raise ValueError(f"TILE must be a power of two in [32, 1024]: {TILE}")
+  return max(32, min(TILE, CAP))
+
+
+def _shift_in(x, first):
+  """x shifted one step right along dim 1, `first` (B,) entering."""
+  return torch.cat([first[:, None], x[:, :-1]], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# kernel 1: sort keys
+# ---------------------------------------------------------------------------
+
+def unpack_diffs(packed):
+  """(B, CAP_B) uint8 -> (B, 4 * CAP_B) int64 2-bit diffs."""
+  b = packed.to(torch.int64)
+  B = b.shape[0]
+  return torch.stack([b & 3, (b >> 2) & 3, (b >> 4) & 3, (b >> 6) & 3],
+                     dim=2).reshape(B, -1)
+
+
+def replay_keys_plain(packed, nbytes, n_chains):
+  """Plain version of the replay_keys kernel. Returns (keys (B, CAP)
+  int64, cls (B, CAP) int32)."""
+  B, CAP_B = packed.shape
+  CAP = CAP_B * 4
+  dev = packed.device
+  T = _tile(CAP)
+  n_cps = nbytes.to(torch.int64)[:, None] * 4
+  nch = n_chains.to(torch.int64)[:, None]
+  chmax = torch.clamp(nch - 1, min=0)
+  idx = torch.arange(CAP, device=dev)
+  diffs = torch.where(idx[None, :] < n_cps, unpack_diffs(packed), 0)
+  diffs_next = torch.cat(
+    [diffs[:, 1:], torch.zeros((B, 1), dtype=torch.int64, device=dev)], 1)
+
+  def full(v):
+    return torch.full((B,), v, dtype=torch.int64, device=dev)
+
+  cps_c, prev_c, r_c, rs_c = full(0), full(255), full(0), full(-1)
+  c_c, cm_c, ie_c, ec_c = full(0), full(INF), full(0), full(0)
+  keys = torch.empty((B, CAP), dtype=torch.int64, device=dev)
+  cls = torch.empty((B, CAP), dtype=torch.int32, device=dev)
+  for t0 in range(0, CAP, T):
+    sl = slice(t0, t0 + T)
+    i = idx[None, sl]
+    inr = i < n_cps
+    cps = (torch.cumsum(diffs[:, sl], 1) + cps_c[:, None]) & 3
+    prev = _shift_in(cps, prev_c)
+    r = (((cps ^ prev) == 2) & inr).to(torch.int64)
+    rs = torch.where((r > 0) & (_shift_in(r, r_c) == 0), i, -1)
+    run_start = torch.maximum(
+      torch.cummax(torch.where(r > 0, rs, -1), 1).values, rs_c[:, None])
+    second = (r > 0) & (((i - run_start) & 1) == 0)
+
+    inr1 = (i + 1) < n_cps
+    cps1 = (cps + diffs_next[:, sl]) & 3
+    r1 = ((cps1 ^ cps) == 2) & inr1
+    pair_first = r1 & ~second
+    term_pair = (cps1 == UP) | (cps1 == LEFT)
+    is_term = pair_first & term_pair
+    is_branch = pair_first & ~term_pair
+    is_move = ~pair_first & ~second & inr
+
+    tok = is_branch.to(torch.int64) - is_term.to(torch.int64)
+    c = torch.cumsum(tok, 1) + c_c[:, None]
+    cm = torch.minimum(torch.cummin(c, 1).values, cm_c[:, None])
+    runmin = torch.clamp(_shift_in(cm, cm_c), max=0)
+    is_end = ((c < runmin) & inr).to(torch.int64)
+    end_cum = torch.cumsum(is_end, 1) + ec_c[:, None]
+    cnt_before = end_cum - is_end
+    chain_of = torch.minimum(torch.clamp(cnt_before, min=0), chmax)
+    valid = (cnt_before < nch) | (_shift_in(is_end, ie_c) > 0)
+
+    depth = c + chain_of + 1 + is_term
+    close = (is_term & valid).to(torch.int64)
+    active = valid & (is_move | is_term)
+    keys[:, sl] = torch.where(
+      active, ((depth * CAP + i) * 8) | (close << 2) | cps, INF)
+    cls[:, sl] = (cps | ((is_move & valid).to(torch.int64) << 2)
+                  | (chain_of << 3)).to(torch.int32)
+
+    cps_c = prev_c = cps[:, -1]
+    r_c, rs_c = r[:, -1], run_start[:, -1]
+    c_c, cm_c = c[:, -1], cm[:, -1]
+    ie_c, ec_c = is_end[:, -1], end_cum[:, -1]
+  return keys, cls
+
+
+def replay_keys(packed, nbytes, n_chains):
+  """Kernel 1: packed (B, CAP_B) uint8, nbytes (B,) int32, n_chains
+  (B,) int32 -> (keys (B, 4*CAP_B) int64, cls (B, 4*CAP_B) int32)."""
+  _check("replay_keys", packed, torch.uint8, 2)
+  _check("replay_keys", nbytes, torch.int32, 1)
+  _check("replay_keys", n_chains, torch.int32, 1)
+  B, CAP_B = packed.shape
+  if nbytes.shape[0] != B or n_chains.shape[0] != B:
+    raise ValueError("replay_keys: batch sizes differ")
+  if not _same_device("replay_keys", packed, nbytes, n_chains):
+    return replay_keys_plain(packed, nbytes, n_chains)
+  CAP = CAP_B * 4
+  if CAP & (CAP - 1):
+    raise ValueError(f"replay_keys: CAP {CAP} is not a power of two")
+  keys = torch.empty((B, CAP), dtype=torch.int64, device=packed.device)
+  cls = torch.empty((B, CAP), dtype=torch.int32, device=packed.device)
+  if B:
+    lib = _build.library()
+    err = lib.replay_keys_launch(
+      packed.data_ptr(), nbytes.data_ptr(), n_chains.data_ptr(),
+      keys.data_ptr(), cls.data_ptr(), B, CAP_B, _tile(CAP),
+      torch.cuda.current_stream(packed.device).cuda_stream)
+    _build.check("replay_keys", err)
+    _build.LAUNCHES["replay_keys"] += 1
+  return keys, cls
+
+
+# ---------------------------------------------------------------------------
+# kernel 2: scope matching, cancels, positions -> edge ids
+# ---------------------------------------------------------------------------
+
+def _next_close(skeys, CAP):
+  """Per sorted event, the position of the next close at the same
+  depth (CAP if none), by a reverse scan over tiles from the end."""
+  B = skeys.shape[0]
+  dev = skeys.device
+  T = _tile(CAP)
+  logcap = CAP.bit_length() - 1
+  inf = skeys == INF
+  close = (((skeys >> 2) & 1) > 0) & ~inf
+  body = skeys >> 3
+  depth = body >> logcap
+  nxt_inf = torch.cat(
+    [inf[:, 1:], torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
+  nxt_depth = torch.cat([depth[:, 1:], depth[:, -1:]], 1)
+  seg_last = inf | nxt_inf | (depth != nxt_depth)
+  e = torch.where(close | seg_last,
+                  torch.where(close, body & (CAP - 1), CAP), -1)
+
+  nc = torch.empty_like(e)
+  carry = torch.full((B, 1), -1, dtype=torch.int64, device=dev)
+  for t0 in reversed(range(0, CAP, T)):
+    et = e[:, t0:t0 + T]
+    n = et.shape[1]
+    # index of the nearest set entry at or after each element
+    k = torch.where(et >= 0, torch.arange(n, device=dev)[None, :], n)
+    k = torch.flip(torch.cummin(torch.flip(k, [1]), 1).values, [1])
+    got = torch.gather(et, 1, torch.clamp(k, max=n - 1))
+    val = torch.where(k < n, got, carry)
+    nc[:, t0:t0 + T] = val
+    carry = val[:, :1]
+  return torch.where(nc < 0, CAP, nc)
+
+
+def replay_positions_plain(skeys, cls, nodes, sx: int, sy: int):
+  """Plain version of the replay_positions kernel. Returns edge ids
+  (B, CAP) int32: V plane sy x (sx+1) first, then H plane (sy+1) x sx;
+  -1 where there is no edge."""
+  B, CAP = skeys.shape
+  dev = skeys.device
+  sxe = sx + 1
+  NV = sy * sxe
+  inf = skeys == INF
+  cps_s = skeys & 3
+  close = (((skeys >> 2) & 1) > 0) & ~inf
+  nc = _next_close(skeys, CAP)
+
+  ok = ~inf & ~close & (nc < CAP)
+  isV = (cps_s == UP) | (cps_s == DOWN)
+  w = torch.where((cps_s == LEFT) | (cps_s == UP), 1, -1)
+  bins = torch.where(ok, isV.to(torch.int64) * CAP + nc, 2 * CAP)
+  cancel = torch.zeros((B, 2 * CAP + 1), dtype=torch.int64, device=dev)
+  cancel.scatter_add_(1, bins, torch.where(ok, w, 0))
+
+  c = cls.to(torch.int64)
+  cps = c & 3
+  mv = ((c >> 2) & 1) > 0
+  chain = c >> 3
+  deltas = torch.where(
+    cps == UP, -sxe,
+    torch.where(cps == RIGHT, 1, torch.where(cps == DOWN, sxe, -1)))
+  deltas = torch.where(mv, deltas, 0)
+  acc = deltas + cancel[:, :CAP] + sxe * cancel[:, CAP:2 * CAP]
+  pos_after = torch.cumsum(acc, 1)
+  CAP_CH = nodes.shape[1]
+  base = torch.gather(nodes.to(torch.int64), 1,
+                      torch.clamp(chain, 0, CAP_CH - 1))
+  base = torch.where(mv & (chain < CAP_CH), base, 0)
+  pos_before = pos_after + base - deltas
+
+  py = torch.div(pos_before, sxe, rounding_mode="floor")
+  px = pos_before - py * sxe
+  ey = torch.where(cps == UP, py - 1, py)
+  ex = torch.where(cps == LEFT, px - 1, px)
+  isH = (cps == RIGHT) | (cps == LEFT)
+  okH = isH & (ey >= 0) & (ey <= sy) & (ex >= 0) & (ex < sx)
+  okV = ~isH & (ey >= 0) & (ey < sy) & (ex >= 0) & (ex < sxe)
+  ids = torch.where(isH, NV + ey * sx + ex, ey * sxe + ex)
+  return torch.where(mv & (okH | okV), ids, -1).to(torch.int32)
+
+
+def replay_positions(skeys, cls, nodes, sx: int, sy: int):
+  """Kernel 2: sorted keys (B, CAP) int64, cls (B, CAP) int32, chain
+  start nodes (B, CAP_CH) int32 -> edge ids (B, CAP) int32."""
+  _check("replay_positions", skeys, torch.int64, 2)
+  _check("replay_positions", cls, torch.int32, 2)
+  _check("replay_positions", nodes, torch.int32, 2)
+  B, CAP = skeys.shape
+  if cls.shape != skeys.shape or nodes.shape[0] != B:
+    raise ValueError("replay_positions: shapes differ")
+  if CAP & (CAP - 1):
+    raise ValueError(f"replay_positions: CAP {CAP} is not a power of two")
+  if (sx + 2) * (sy + 2) >= 1 << 30:
+    raise ValueError("replay_positions: slice too large for int32 ids")
+  if not _same_device("replay_positions", skeys, cls, nodes):
+    return replay_positions_plain(skeys, cls, nodes, sx, sy)
+  ids = torch.empty((B, CAP), dtype=torch.int32, device=skeys.device)
+  if B:
+    cancel = torch.empty((B, 2 * CAP), dtype=torch.int32,
+                         device=skeys.device)
+    lib = _build.library()
+    err = lib.replay_positions_launch(
+      skeys.data_ptr(), cls.data_ptr(), nodes.data_ptr(),
+      cancel.data_ptr(), ids.data_ptr(), B, CAP, nodes.shape[1], sx, sy,
+      _tile(CAP), torch.cuda.current_stream(skeys.device).cuda_stream)
+    _build.check("replay_positions", err)
+    _build.LAUNCHES["replay_positions"] += 1
+  return ids
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: VCG paint
+# ---------------------------------------------------------------------------
+
+# shared memory one block of the paint kernel may take (H100: 227 KB)
+PAINT_SMEM_MAX = 232448
+
+
+def paint_vcg_plain(ids, sx: int, sy: int, permissible: bool):
+  B = ids.shape[0]
+  sxe = sx + 1
+  NV = sy * sxe
+  NB = NV + (sy + 1) * sx
+  i = ids.to(torch.int64)
+  i = torch.where((i >= 0) & (i < NB), i, NB)
+  pres = torch.zeros((B, NB + 1), dtype=torch.int32, device=ids.device)
+  pres.scatter_(1, i, 1)
+  V = pres[:, :NV].reshape(B, sy, sxe)
+  H = pres[:, NV:NB].reshape(B, sy + 1, sx)
+  vcg = (V[:, :, 1:] | (V[:, :, :sx] << 1) | (H[:, 1:, :] << 2)
+         | (H[:, :sy, :] << 3))
+  return vcg if permissible else vcg ^ 0b1111
+
+
+def paint_vcg(ids, sx: int, sy: int, permissible: bool):
+  """Kernel 3: edge ids (B, CAP) int32, in any order -> VCG (B, sy, sx)
+  int32 (complemented for impermissible streams)."""
+  _check("paint_vcg", ids, torch.int32, 2)
+  if ids.device.type != "cuda":
+    return paint_vcg_plain(ids, sx, sy, permissible)
+  NB = sy * (sx + 1) + (sy + 1) * sx
+  if -(-NB // 32) * 4 > PAINT_SMEM_MAX:
+    raise ValueError(f"paint_vcg: a {sx}x{sy} slice's edge bitmap "
+                     "exceeds one block's shared memory")
+  B, CAP = ids.shape
+  vcg = torch.empty((B, sy, sx), dtype=torch.int32, device=ids.device)
+  if B:
+    lib = _build.library()
+    err = lib.paint_vcg_launch(
+      ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible),
+      torch.cuda.current_stream(ids.device).cuda_stream)
+    _build.check("paint_vcg", err)
+    _build.LAUNCHES["paint_vcg"] += 1
+  return vcg
+
