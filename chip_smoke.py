@@ -1,25 +1,41 @@
 #!/usr/bin/env python3
-"""Drive crackle_tpu_torch's main path once on one CUDA card.
+"""Drive crackle_tpu_torch's paths once on one CUDA card.
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phase 8 several):
+Phases, one line each (phases 8 to 11 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
-     the first 32 slices of the 512^3 bench volume and all of the
-     256^2 x 128 one (plus the u64 paint and a tile-seam run), timed
-     with CUDA events at the 512^3 slice shapes;
-  4. the main path: upload_stream of the 512^3 volume to the card and
+     the first 32 slices of the 512^3 bench volume, all of the 256^2 x
+     128 one and of the 256^2 x 128 pins one (plus the u64 paint and a
+     tile-seam run); ccl_min -> roots_from_tgt -> plant against
+     ccl_paint on the same VCGs. Meanwhile two child processes run the
+     host oracle: crackle_tpu.decompress on its numpy engine, the
+     condensed-pins compress of the 512^3 volume, numpy label
+     statistics of it and crackle_tpu.CrackleArray cutouts (so this
+     script imports only the port). Kernel and plain times with CUDA
+     events at the 512^3 slice shapes, once the children have ended;
+  4. the flat main path: upload_stream of the 512^3 volume and
      decode_window(0, 512, check_crcs=True), labels bit-equal to the
-     host decoder (crackle_tpu.decompress on its numpy engine, run in
-     a child process: this script imports only the port);
+     host decoder;
   5. decode_window(100, 164) of the same stream;
-  6. the u64 watershed volume and the 256^2 x 128 volume the same way;
+  6. the u64 watershed, 256^2 x 128 and markov 256^2 x 128 volumes the
+     same way;
   7. a flipped stored CRC word must raise FormatError naming its z;
-  8. launch counts of the main path; steady-state time per volume of
+  8. launch counts of the flat path; steady-state time per volume of
      each volume, the time of each stage, and the card's busy share
-     over three 512^3 decodes (torch.profiler).
+     over three 512^3 decodes (torch.profiler);
+  9. the pins path: the 512^3 pins stream and the 256^2 x 128 pins
+     volume uploaded and decoded (whole and a window) against the
+     oracle, its launch counts, steady times and stage times, and
+     ccl_min + plant against ccl_paint twice on the same VCG;
+ 10. analytics: voxel_counts, centroids and bounding_boxes of the flat
+     512^3 stream against the numpy oracle (counts and boxes equal,
+     centroids within rtol 1e-12), their wall times, launch counts and
+     the slice_stats time per 256-slice window;
+ 11. CrackleDeviceArray cutouts of the 512^3, u64 and pins 512^3
+     streams against CrackleArray's, and check_crcs().
 
 Any failure raises and exits non-zero; without a CUDA device the
 script exits 2 and prints no result. The last three lines are the
@@ -37,48 +53,155 @@ import numpy as np
 import torch
 
 import crackle_tpu_torch as ct
-from crackle_tpu_torch.kernels import _build, ccl, crc32c, replay
+from crackle_tpu_torch.kernels import _build, ccl, crc32c, replay, stats
+from crackle_tpu_torch.kernels import decode as dec
 from crackle_tpu_torch.kernels import engine as eng
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-VOL512 = os.path.join(ROOT, "bench_data/connectomics_v2_512x512x512.ckl")
-VOL256 = os.path.join(ROOT, "bench_data/connectomics_v2_256x256x128.ckl")
-VOLU64 = os.path.join(ROOT, "bench_data/watershed_u64_256x256x128.ckl")
+DATA = os.path.join(ROOT, "bench_data")
+VOL512 = os.path.join(DATA, "connectomics_v2_512x512x512.ckl")
+VOL256 = os.path.join(DATA, "connectomics_v2_256x256x128.ckl")
+VOLU64 = os.path.join(DATA, "watershed_u64_256x256x128.ckl")
+VOLMKV = os.path.join(DATA, "connectomics_v2_mkv5_256x256x128.ckl")
+VOLPINS = os.path.join(DATA, "connectomics_v2_pins_256x256x128.ckl")
 
-# The host oracle, run in a child process: argv holds pairs of a .ckl
-# path and an .npy path, which receives the volume as (sz, sy*sx).
-ORACLE = """
+# CrackleDeviceArray cutouts held against CrackleArray's of the flat
+# stream, as the text inside np.s_[...]; the pins 512^3 stream holds the
+# same volume as the flat one (phase 9 checks all of it), and the host
+# decodes the flat one far faster
+CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
+           ("512^3", VOL512, "..., 5"),
+           ("512^3", VOL512, "7"),
+           ("u64", VOLU64, "30:200, 0:256, 17:90"),
+           ("pins 512^3", VOL512, "0:512, 100:101, 300:420")]
+
+# The host oracle, run in child processes. argv[1] is a JSON spec, each
+# key optional:
+#   decode:    [ckl, npy or null] pairs; the npy receives the volume as
+#              (sz, sy*sx)
+#   pins:      [ckl, out]: out receives compress(volume, allow_pins=True)
+#   stats:     [ckl, npz]: numpy label statistics of the volume
+#   cutouts:   [ckl, key, npy]: CrackleArray(ckl)[np.s_[key]]
+# Each step's end is logged to stderr with the seconds since the start.
+ORACLE = r"""
+import json
+import os
 import sys
+import time
 import numpy as np
 import crackle_tpu as crackle
 from crackle_tpu import native
 crackle.codec.set_engine("numpy")
 if not native.available():
   sys.exit("the native host decoder is missing")
-for src, dst in zip(sys.argv[1::2], sys.argv[2::2]):
-  with open(src, "rb") as f:
-    vol = crackle.decompress(f.read())
-  np.save(dst, np.ascontiguousarray(vol.transpose(2, 1, 0)).reshape(
-    vol.shape[2], -1))
+spec = json.loads(sys.argv[1])
+
+
+def read(path):
+  with open(path, "rb") as f:
+    return f.read()
+
+
+def label_stats(vol):
+  # per-slice unique labels, counts, coordinate sums and x/y extents,
+  # then one merge over the (slice, label) rows
+  sx, sy, sz = vol.shape
+  p = np.arange(sx * sy)
+  X, Y = p % sx, p // sx
+  rows = []
+  for z in range(sz):
+    sl = np.ascontiguousarray(vol[:, :, z].T).ravel()
+    u, inv, cnt = np.unique(sl, return_inverse=True, return_counts=True)
+    order = np.argsort(inv, kind="stable")
+    st = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    xs, ys = X[order], Y[order]
+    rows.append(np.stack([
+      u.astype(np.int64), cnt, np.add.reduceat(xs, st),
+      np.add.reduceat(ys, st), z * cnt, np.minimum.reduceat(xs, st),
+      np.maximum.reduceat(xs, st), np.minimum.reduceat(ys, st),
+      np.maximum.reduceat(ys, st), np.full(len(u), z)], 1))
+  r = np.concatenate(rows)
+  uniq, k = np.unique(r[:, 0], return_inverse=True)
+  out = {"uniq": uniq}
+  for i, name in enumerate(["count", "sum_x", "sum_y", "sum_z"], 1):
+    out[name] = np.zeros(len(uniq), np.int64)
+    np.add.at(out[name], k, r[:, i])
+  for name, col, op, fill in (("min_x", 5, np.minimum, 1 << 62),
+                              ("max_x", 6, np.maximum, -1),
+                              ("min_y", 7, np.minimum, 1 << 62),
+                              ("max_y", 8, np.maximum, -1),
+                              ("min_z", 9, np.minimum, 1 << 62),
+                              ("max_z", 9, np.maximum, -1)):
+    out[name] = np.full(len(uniq), fill, np.int64)
+    op.at(out[name], k, r[:, col])
+  return out
+
+
+t0 = time.perf_counter()
+
+
+def done(step):
+  print(f"oracle: {step} at {time.perf_counter() - t0:.1f} s",
+        file=sys.stderr, flush=True)
+
+
+vols = {}
+for src, dst in spec.get("decode", []):
+  vol = crackle.decompress(read(src))
+  vols[src] = vol
+  if dst:
+    np.save(dst, np.ascontiguousarray(vol.transpose(2, 1, 0)).reshape(
+      vol.shape[2], -1))
+  done(f"decoded {os.path.basename(src)}")
+if "pins" in spec:
+  src, dst = spec["pins"]
+  pins = crackle.compress(vols[src], allow_pins=True)
+  if crackle.header(pins).label_format != 2:
+    sys.exit("the pins compress did not write condensed pins")
+  with open(dst, "wb") as f:
+    f.write(pins)
+  done("compressed with pins")
+if "stats" in spec:
+  src, dst = spec["stats"]
+  np.savez(dst, **label_stats(vols[src]))
+  done("label statistics")
+for src, key, dst in spec.get("cutouts", []):
+  np.save(dst, crackle.CrackleArray(read(src))[eval(f"np.s_[{key}]")])
+  done(f"cutout [{key}]")
 """
 
 KERNELS = [
   # name, source, the TPU kernel it replaces on the 512^3 path (and the
-  # 256^2 class's one)
+  # 256^2 class's one), the path whose run gives its launch count
   ("replay_keys", "crackle_tpu_torch/csrc/replay.cu",
    "crackle_tpu/kernels/replay_big.py:177",
-   "crackle_tpu/kernels/replay_pallas.py:205"),
+   "crackle_tpu/kernels/replay_pallas.py:205", "flat"),
   ("replay_positions", "crackle_tpu_torch/csrc/replay.cu",
    "crackle_tpu/kernels/replay_big.py:580",
    "crackle_tpu/kernels/replay_big.py:427, "
-   "crackle_tpu/kernels/replay_pallas.py:294"),
+   "crackle_tpu/kernels/replay_pallas.py:294", "flat"),
   ("paint_vcg", "crackle_tpu_torch/csrc/replay.cu",
    "crackle_tpu/kernels/replay_big.py:720",
-   "crackle_tpu/kernels/replay_pallas.py:418"),
+   "crackle_tpu/kernels/replay_pallas.py:418", "flat"),
   ("ccl_paint", "crackle_tpu_torch/csrc/ccl.cu",
    "crackle_tpu/kernels/ccl_pallas.py:417",
-   "crackle_tpu/kernels/ccl_pallas.py:337"),
+   "crackle_tpu/kernels/ccl_pallas.py:337", "flat"),
+  ("ccl_min", "crackle_tpu_torch/csrc/ccl.cu",
+   "crackle_tpu/kernels/ccl_pallas.py:476", "", "pins"),
+  ("plant", "crackle_tpu_torch/csrc/ccl.cu",
+   "crackle_tpu/kernels/ccl_pallas.py:541", "", "pins"),
+  ("slice_stats", "crackle_tpu_torch/csrc/stats.cu",
+   "crackle_tpu/kernels/stats_pallas.py:46", "", "analytics"),
 ]
+
+# the kernels each path must launch
+PATHS = {
+  "flat": ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"),
+  "pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min",
+           "plant"),
+  "analytics": ("replay_keys", "replay_positions", "paint_vcg",
+                "ccl_paint", "slice_stats"),
+}
 
 
 def say(phase, msg):
@@ -135,8 +258,8 @@ def require_labels(what, got, want):
     raise AssertionError(f"{what}: {got.shape} {got.dtype}, want "
                          f"{want.shape} {want.dtype}")
   if not np.array_equal(got, want):
-    bad = np.flatnonzero((got != want).any(axis=1))
-    raise AssertionError(f"{what}: labels differ on {len(bad)} slices, "
+    bad = np.flatnonzero((got != want).reshape(len(got), -1).any(axis=1))
+    raise AssertionError(f"{what}: labels differ on {len(bad)} rows, "
                          f"first {bad[0]}")
 
 
@@ -145,27 +268,47 @@ def read(path):
     return f.read()
 
 
-def host_oracle(paths):
-  """The volumes decoded by crackle_tpu.decompress (numpy engine) in a
-  child process, each as (sz, sy*sx), and the seconds it took."""
-  t0 = time.perf_counter()
-  with tempfile.TemporaryDirectory() as tmp:
-    outs = [os.path.join(tmp, f"oracle{i}.npy") for i in range(len(paths))]
-    args = [a for pair in zip(paths, outs) for a in pair]
-    subprocess.run([sys.executable, "-c", ORACLE, *args], cwd=ROOT,
-                   check=True, timeout=600)
-    vols = [np.load(o) for o in outs]
-  return vols, time.perf_counter() - t0
+def start_oracle(tmp):
+  """Start the host oracle in two child processes, the pins compress of
+  the 512^3 volume in one and the rest in the other; returns (the
+  processes, the paths they write)."""
+  out = {name: os.path.join(tmp, f"{name}.npy") for name in
+         ("512", "u64", "256", "mkv", "pins256")}
+  out["pins512"] = os.path.join(tmp, "pins512.ckl")
+  out["stats"] = os.path.join(tmp, "stats512.npz")
+  out["cutouts"] = [os.path.join(tmp, f"cut{i}.npy")
+                    for i in range(len(CUTOUTS))]
+  specs = [
+    {"decode": [[VOL512, None]], "pins": [VOL512, out["pins512"]]},
+    {"decode": [[VOL512, out["512"]], [VOLU64, out["u64"]],
+                [VOL256, out["256"]], [VOLMKV, out["mkv"]],
+                [VOLPINS, out["pins256"]]],
+     "stats": [VOL512, out["stats"]],
+     "cutouts": [[src, key, dst] for (_, src, key), dst
+                 in zip(CUTOUTS, out["cutouts"])]},
+  ]
+  procs = [subprocess.Popen([sys.executable, "-c", ORACLE, json.dumps(spec)],
+                            cwd=ROOT) for spec in specs]
+  return procs, out
+
+
+def plain_table(rng, B, K, cap_n, dev):
+  return torch.from_numpy(rng.randint(
+    -2 ** 31, 2 ** 31, (B, K, cap_n), dtype=np.int64).astype(np.int32)).to(dev)
 
 
 def compare_kernels(binary, z1, dev, tag, errs):
   """Each kernel against its plain version on the same inputs."""
   inputs = eng.prepare_slice_inputs(binary, 0, z1)
   head = inputs["head"]
-  uniq, cum, keys = eng._flat_label_tables(head, binary)
-  n_per = cum[1:z1 + 1] - cum[:z1]
-  cap_n = eng._next_pow2(max(int(n_per.max()), 8))
-  T = eng.plant_table(uniq, cum, keys, 0, z1, cap_n)
+  if head.label_format == 0:
+    uniq, cum, keys = eng._flat_label_tables(head, binary)
+    n_per = cum[1:z1 + 1] - cum[:z1]
+    cap_n = eng._next_pow2(max(int(n_per.max()), 8))
+    T = eng.plant_table(uniq, cum, keys, 0, z1, cap_n)
+  else:  # pins: any table of the stream's cap_n
+    cap_n = eng._pins_device_tables(head, binary, 0, z1)[5]
+    T = plain_table(np.random.RandomState(z1), z1, 1, cap_n, "cpu").numpy()
   t = eng.params_from_jax(inputs, T, dev)
   sx, sy = head.sx, head.sy
   perm = head.crack_format == ct.CrackFormat.PERMISSIBLE
@@ -200,7 +343,50 @@ def compare_kernels(binary, z1, dev, tag, errs):
           require_equal(f"{tag} cc K=0", cc0, ccp),
           require_equal(f"{tag} N K=0", N0, Np))
   errs["ccl_paint"] = max(errs["ccl_paint"], e)
-  return t, skp, cp, idsp, vp, sx, sy, perm
+
+  L, tgt = ccl.ccl_min(vp)
+  Lp, tgtp = ccl.ccl_min_plain(vp)
+  errs["ccl_min"] = max(errs["ccl_min"],
+                        require_equal(f"{tag} L", L, Lp),
+                        require_equal(f"{tag} tgt", tgt, tgtp))
+  cap2 = ccl._pow2_cap(cap_n)
+  roots, _ = ccl.roots_from_tgt(tgtp, cap2)
+  rng = np.random.RandomState(7)
+  for K in (0, 1, 2):
+    TK = plain_table(rng, z1, K, cap2, dev) if K else None
+    got = ccl.plant(Lp, roots, TK)
+    want = ccl.plant_plain(Lp, roots, TK)
+    errs["plant"] = max(errs["plant"],
+                        require_equal(f"{tag} plant cc K={K}", got[0],
+                                      want[0]),
+                        require_equal(f"{tag} plant painted K={K}", got[1],
+                                      want[1]))
+  for name, a, b in zip(("cc", "N", "painted"), ccl.ccl_paint_v2(vp, Tt),
+                        (ccp, Np, ptp)):
+    require_equal(f"{tag} ccl_paint_v2 {name} vs ccl_paint", a, b)
+
+  cap_s = ccl._pow2_cap(int(Np.max()))
+  errs["slice_stats"] = max(errs["slice_stats"], require_equal(
+    f"{tag} slice_stats", stats.slice_stats(ccp, sx, sy, cap_s),
+    stats.slice_stats_plain(ccp, sx, sy, cap_s)))
+  return t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s
+
+
+def check_path(name, launches):
+  missing = [k for k in PATHS[name] if launches[k] <= 0]
+  if missing:
+    raise AssertionError(f"kernels not launched on the {name} path: "
+                         f"{missing}")
+
+
+def steady(phase, tag, s):
+  h = s.head
+  ms = wall_ms(lambda: s.decode_window(0, h.sz, check_crcs=True), 5)
+  mean = sum(ms) / len(ms)
+  say(phase, f"steady {tag} decode_window(0, {h.sz}, check_crcs=True) ms: "
+             + ", ".join(f"{m:.3f}" for m in ms)
+             + f"; mean {mean:.3f} ms, "
+               f"{h.sx * h.sy * h.sz / mean / 1e3:.1f} MVx/s")
 
 
 def main():
@@ -218,19 +404,34 @@ def main():
   say(1, f"card: {card} | torch: {kind} | torch {torch.__version__} "
          f"cuda {torch.version.cuda}")
 
+  with tempfile.TemporaryDirectory() as tmp:
+    t_or = time.perf_counter()
+    oracles, paths = start_oracle(tmp)
+    try:
+      return run(dev, card, kind, oracles, paths, t_or)
+    finally:
+      for proc in oracles:
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
+
+
+def run(dev, card, kind, oracles, paths, t_or):
   t0 = time.perf_counter()
   _build.library()
   say(2, f"built kernels in {time.perf_counter() - t0:.3f} s "
-         f"(nvcc {_build.build_seconds:.3f} s)")
+         f"(nvcc {_build.build_seconds:.3f} s, one process per source)")
 
   b512, b256, bu64 = read(VOL512), read(VOL256), read(VOLU64)
+  bmkv, bpins = read(VOLMKV), read(VOLPINS)
   errs = {name: 0.0 for name, *_ in KERNELS}
   t0 = time.perf_counter()
   sub = compare_kernels(b512, 32, dev, "512^3[:32]", errs)
   compare_kernels(bu64, 32, dev, "u64[:32]", errs)
+  compare_kernels(bpins, 128, dev, "pins 256^2x128", errs)
   # tile seams: the kernels with a 64-codepoint tile against the plain
   # versions at the default tile, on the 256^2 volume
-  _, _, _, _, want, sx, sy, perm = compare_kernels(
+  _, _, _, _, want, sx, sy, perm, *_ = compare_kernels(
     b256, 128, dev, "256^2x128", errs)
   t = eng.params_from_jax(eng.prepare_slice_inputs(b256, 0, 128), None,
                           dev)
@@ -243,11 +444,19 @@ def main():
     replay.TILE = 1024
   require_equal("tile-64 vcg", replay.paint_vcg(ids, sx, sy, perm), want)
   say(3, f"kernels bit-equal to their plain versions on 512^3[:32], "
-         f"256^2x128, u64[:32] and at tile 64: max_abs_err {errs} "
-         f"({time.perf_counter() - t0:.1f} s)")
+         f"256^2x128, u64[:32], pins 256^2x128 and at tile 64, and "
+         f"ccl_min -> roots_from_tgt -> plant equal to ccl_paint on each: "
+         f"max_abs_err {errs} ({time.perf_counter() - t0:.1f} s)")
+
+  for proc in oracles:
+    if proc.wait(timeout=900) != 0:
+      raise AssertionError(f"the host oracle failed ({proc.returncode})")
+  t_or = time.perf_counter() - t_or
+  say(3, f"host oracle done in {t_or:.1f} s (two child processes: five "
+         "decodes, the 512^3 pins compress, label statistics, cutouts)")
 
   # kernel vs plain times at the 512^3 slice shapes (first 32 slices)
-  t, skp, cp, idsp, vp, sx, sy, perm = sub
+  t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s = sub
   Tt = t["T"]
   args = {
     "replay_keys": (lambda: replay.replay_keys(
@@ -260,12 +469,19 @@ def main():
                   lambda: replay.paint_vcg_plain(idsp, sx, sy, perm)),
     "ccl_paint": (lambda: ccl.ccl_paint(vp, Tt),
                   lambda: ccl.ccl_paint_plain(vp, Tt)),
+    "ccl_min": (lambda: ccl.ccl_min(vp), lambda: ccl.ccl_min_plain(vp)),
+    "plant": (lambda: ccl.plant(Lp, roots, Tt),
+              lambda: ccl.plant_plain(Lp, roots, Tt)),
+    "slice_stats": (lambda: stats.slice_stats(ccp, sx, sy, cap_s),
+                    lambda: stats.slice_stats_plain(ccp, sx, sy, cap_s)),
   }
   times = {}
   for name, (kern, plain) in args.items():
     times[name] = (cuda_ms(kern, 10), cuda_ms(plain, 2))
+  del sub, args, t, skp, cp, idsp, vp, Lp, roots, ccp
 
-  # 4: the main path
+  launches = {}
+  # 4: the flat main path
   ct.reset_launches()
   torch.cuda.synchronize()
   t0 = time.perf_counter()
@@ -278,33 +494,32 @@ def main():
   labels, cc, N = stream.decode_window(0, 512, check_crcs=True)
   torch.cuda.synchronize()
   t_dec = time.perf_counter() - t0
-  launches = dict(ct.LAUNCHES)
+  launches["flat"] = dict(ct.LAUNCHES)
   head = stream.head
   sx, sy, sz = head.sx, head.sy, head.sz
   if labels.shape != (sz, sx * sy) or labels.dtype != torch.uint32:
     raise AssertionError(f"labels {tuple(labels.shape)} {labels.dtype}")
-  (want, want_u64, want_256), t_or = host_oracle([VOL512, VOLU64, VOL256])
+  want = np.load(paths["512"])
   require_labels("512^3", labels, want)
   say(4, f"512^3 u32 (CAP {stream.packed.shape[1] * 4}, "
          f"{stream.nbytes_device} bytes on the card): upload_stream "
          f"{t_up * 1e3:.3f} ms, first decode_window(0, 512, "
          f"check_crcs=True) {t_dec * 1e3:.3f} ms, labels bit-equal to the "
-         f"host decoder (child process, {t_or:.1f} s for three volumes), "
-         f"max N {int(N.max())}")
+         f"host decoder, max N {int(N.max())}")
   del labels, cc
 
   # 5: a window
   lw, _, _ = stream.decode_window(100, 164, check_crcs=True)
   require_labels("decode_window(100, 164)", lw, want[100:164])
   say(5, "decode_window(100, 164, check_crcs=True) bit-equal")
-  del want, lw
+  del lw
 
-  # 6: u64 labels (K = 2), and the 256^2 class of the replay
+  # 6: u64 labels (K = 2), the 256^2 class of the replay, markov order 5
   small = {}
-  for tag, binary, ref, dtype in (("u64 256^2x128", bu64, want_u64,
-                                   torch.uint64),
-                                  ("u32 256^2x128", b256, want_256,
-                                   torch.uint32)):
+  for tag, binary, ref, dtype in (
+      ("u64 256^2x128", bu64, "u64", torch.uint64),
+      ("u32 256^2x128", b256, "256", torch.uint32),
+      ("markov-5 256^2x128", bmkv, "mkv", torch.uint32)):
     t0 = time.perf_counter()
     s = ct.upload_stream(binary, dev)
     if s is None:
@@ -314,11 +529,10 @@ def main():
     lab, _, _ = s.decode_window(0, s.head.sz, check_crcs=True)
     if lab.dtype != dtype:
       raise AssertionError(f"{tag}: labels {lab.dtype}, want {dtype}")
-    require_labels(tag, lab, ref)
+    require_labels(tag, lab, np.load(paths[ref]))
     small[tag] = s
     say(6, f"{tag} (CAP {s.packed.shape[1] * 4}): upload_stream "
            f"{t_up_s * 1e3:.3f} ms, labels bit-equal to the host decoder")
-  del want_u64, want_256
 
   # 7: a flipped stored CRC word
   z_bad = 317
@@ -334,19 +548,10 @@ def main():
   stream.crcs = good
 
   # 8: launches, steady state, stages, busy share
-  missing = [k for k, n in launches.items() if n <= 0]
-  say(8, f"main-path launches {launches}")
-  if missing:
-    raise AssertionError(f"kernels not launched on the main path: {missing}")
-  vols = [("512^3", stream)] + list(small.items())
-  for tag, s in vols:
-    h = s.head
-    ms = wall_ms(lambda: s.decode_window(0, h.sz, check_crcs=True), 5)
-    mean = sum(ms) / len(ms)
-    say(8, f"steady {tag} decode_window(0, {h.sz}, check_crcs=True) ms: "
-           + ", ".join(f"{m:.3f}" for m in ms)
-           + f"; mean {mean:.3f} ms, {h.sx * h.sy * h.sz / mean / 1e3:.1f} "
-             "MVx/s")
+  say(8, f"flat-path launches {launches['flat']}")
+  check_path("flat", launches["flat"])
+  for tag, s in [("512^3", stream)] + list(small.items()):
+    steady(8, tag, s)
   stages = stage_times(stream)
   say(8, "512^3 stage ms at B=512 (CUDA events): " + ", ".join(
     f"{k} {v:.3f}" for k, v in stages.items())
@@ -355,17 +560,110 @@ def main():
     say(8, f"{name}: kernel {km:.4f} ms, plain {pm:.4f} ms "
            f"(B=32 slices of 512^3)")
   say(8, busy_share(stream))
+  del small
+
+  # 9: the pins path
+  bp512 = read(paths["pins512"])
+  ct.reset_launches()
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  ps = ct.upload_stream(bp512, dev)
+  if ps is None or ps.pins is None:
+    raise AssertionError("upload_stream declined the 512^3 pins stream")
+  torch.cuda.synchronize()
+  t_up = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  labels, _, _ = ps.decode_window(0, 512, check_crcs=True)
+  torch.cuda.synchronize()
+  t_dec = time.perf_counter() - t0
+  launches["pins"] = dict(ct.LAUNCHES)
+  require_labels("pins 512^3", labels, want)
+  del labels
+  lw, _, _ = ps.decode_window(100, 164)
+  require_labels("pins decode_window(100, 164)", lw, want[100:164])
+  del lw
+  say(9, f"512^3 pins ({len(bp512)} bytes, cap_n {ps.pins[5]}, "
+         f"{ps.nbytes_device} bytes on the card): upload_stream "
+         f"{t_up * 1e3:.3f} ms, first decode_window(0, 512, "
+         f"check_crcs=True) {t_dec * 1e3:.3f} ms; it and "
+         f"decode_window(100, 164) bit-equal to the volume")
+  say(9, f"pins-path launches {launches['pins']}")
+  check_path("pins", launches["pins"])
+  p256 = ct.upload_stream(bpins, dev)
+  lab, _, _ = p256.decode_window(0, p256.head.sz, check_crcs=True)
+  require_labels("pins 256^2x128", lab, np.load(paths["pins256"]))
+  lw, _, _ = p256.decode_window(40, 90, check_crcs=True)
+  require_labels("pins 256^2x128 [40, 90)", lw,
+                 np.load(paths["pins256"])[40:90])
+  say(9, "pins 256^2x128: decode_window(0, 128) and (40, 90) bit-equal "
+         "to the host decoder")
+  steady(9, "pins 512^3", ps)
+  steady(9, "pins 256^2x128", p256)
+  ptimes = pins_stage_times(ps)
+  say(9, "pins 512^3 stage ms at B=512 (CUDA events): " + ", ".join(
+    f"{k} {v:.3f}" for k, v in ptimes.items() if not k.startswith("v"))
+      + f"; CCL and paint as ccl_min + roots_from_tgt + plant x2 "
+        f"{ptimes['v2']:.3f} ms, as ccl_paint K=0 + ccl_paint K=1 "
+        f"{ptimes['v1']:.3f} ms")
+  del ps, p256, want
+
+  # 10: analytics of the flat 512^3 stream
+  orc = np.load(paths["stats"])
+  ct.reset_launches()
+  wall = {}
+  t0 = time.perf_counter()
+  vc = ct.voxel_counts(b512, device=dev)
+  wall["voxel_counts"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  cen = ct.centroids(b512, device=dev)
+  wall["centroids"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  bb = ct.bounding_boxes(b512, no_slice_conversion=True, device=dev)
+  wall["bounding_boxes"] = time.perf_counter() - t0
+  launches["analytics"] = dict(ct.LAUNCHES)
+  check_analytics(orc, vc, cen, bb)
+  say(10, f"512^3 analytics of {len(orc['uniq'])} labels: voxel_counts "
+          f"and bounding_boxes equal to the numpy oracle, centroids within "
+          f"rtol 1e-12; wall s " + ", ".join(
+            f"{k} {v:.3f}" for k, v in wall.items()))
+  say(10, f"analytics-path launches {launches['analytics']}")
+  check_path("analytics", launches["analytics"])
+  cc_w, _, _ = ct.decode_window_ccl_device(b512, 0, 256, dev)
+  _, cum, _ = eng._flat_label_tables(head, b512)
+  cap_w = eng._next_pow2(max(int((cum[1:] - cum[:-1]).max()), 8))
+  ms_w = cuda_ms(lambda: stats.slice_stats(cc_w, 512, 512, cap_w), 5)
+  say(10, f"slice_stats per 256-slice window of 512^3 (cap_n {cap_w}): "
+          f"{ms_w:.4f} ms (CUDA events, mean of 5)")
+  del cc_w
+
+  # 11: CrackleDeviceArray cutouts
+  arrays = {"512^3": ct.CrackleDeviceArray(b512, dev),
+            "u64": ct.CrackleDeviceArray(bu64, dev),
+            "pins 512^3": ct.CrackleDeviceArray(bp512, dev)}
+  for (tag, _, key), path in zip(CUTOUTS, paths["cutouts"]):
+    got = arrays[tag][eval(f"np.s_[{key}]")]
+    if got.device.type != "cuda":
+      raise AssertionError(f"{tag}[{key}] not on the card")
+    require_labels(f"{tag}[{key}]", got, np.load(path))
+  for tag, arr in arrays.items():
+    arr.check_crcs()
+  say(11, "CrackleDeviceArray cutouts equal CrackleArray's (the pins "
+          "one that of the flat stream of the same volume): " + "; ".join(
+    f"{tag}[{key}]" for tag, _, key in CUTOUTS)
+      + "; check_crcs() passed on each array")
 
   if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
     raise AssertionError("jax was imported")
 
   out = []
-  for name, src, repl, also in KERNELS:
-    out.append({"name": name, "route": "cuda", "source": src,
-                "replaces": repl, "also_replaces": also,
-                "launches": launches[name], "max_abs_err": errs[name],
-                "ms": times[name][0], "plain_ms": times[name][1],
-                "timed_batch": 32})
+  for name, src, repl, also, path in KERNELS:
+    row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
+           "launches": launches[path][name], "launch_path": path,
+           "max_abs_err": errs[name], "ms": times[name][0],
+           "plain_ms": times[name][1], "timed_batch": 32}
+    if also:
+      row["also_replaces"] = also
+    out.append(row)
   print(card)
   print(json.dumps({"kernels": out}))
   print(json.dumps({"ok": True, "device": {
@@ -373,8 +671,27 @@ def main():
   return 0
 
 
+def check_analytics(orc, vc, cen, bb):
+  uniq = [int(u) for u in orc["uniq"]]
+  for what, got in (("voxel_counts", vc), ("centroids", cen),
+                    ("bounding_boxes", bb)):
+    if sorted(got) != uniq:
+      raise AssertionError(f"{what}: labels differ from the oracle's")
+  count = orc["count"]
+  if [vc[u] for u in uniq] != count.tolist():
+    raise AssertionError("voxel_counts differ from the oracle")
+  want = np.stack([orc[k] for k in ("min_x", "min_y", "min_z", "max_x",
+                                    "max_y", "max_z")], 1)
+  got = np.stack([bb[u].astype(np.int64) for u in uniq])
+  if not np.array_equal(got, want):
+    raise AssertionError("bounding_boxes differ from the oracle")
+  want = np.stack([orc[k] / count for k in ("sum_x", "sum_y", "sum_z")], 1)
+  got = np.array([cen[u] for u in uniq])
+  np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
 def stage_times(s):
-  """Device ms of each stage of one full-volume decode."""
+  """Device ms of each stage of one full-volume flat decode."""
   h = s.head
   keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
   skeys = torch.sort(keys, 1).values
@@ -391,6 +708,56 @@ def stage_times(s):
       ids, h.sx, h.sy, s.permissible), 3),
     "ccl_paint": cuda_ms(lambda: ccl.ccl_paint(vcg, s.T), 3),
     "crc32c": cuda_ms(lambda: crc32c.crc32c_rows(cc), 3),
+  }
+
+
+def pins_stage_times(s):
+  """Device ms of each stage of one full-volume pins decode, and of
+  its CCL and paint done as v2 (ccl_min, the roots, two plants) and as
+  v1 (ccl_paint without and with the label table)."""
+  h = s.head
+  pl_, pb_, si_, sl_, bg32, cap_n = s.pins
+  B = h.sz
+  cap2 = ccl._pow2_cap(cap_n)
+  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  skeys = torch.sort(keys, 1).values
+  ids = replay.replay_positions(skeys, cls, s.nodes, h.sx, h.sy)
+  vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
+  L, tgt = ccl.ccl_min(vcg)
+  roots, _ = ccl.roots_from_tgt(tgt, cap2)
+  cc, _ = ccl.plant(L, roots)
+  Tp = torch.zeros((B, 1, cap2), dtype=torch.int32, device=s.device)
+  T1 = Tp[:, :, :cap_n].contiguous()
+
+  def table():
+    return dec.pins_label_table(cc, pl_, pb_, si_, sl_, bg32, cap_n)
+
+  def v2():
+    L2, t2 = ccl.ccl_min(vcg)
+    r2, _ = ccl.roots_from_tgt(t2, cap2)
+    ccl.plant(L2, r2)
+    ccl.plant(L2, r2, Tp)
+
+  def v1():
+    ccl.ccl_paint(vcg)
+    ccl.ccl_paint(vcg, T1)
+
+  return {
+    "replay_keys": cuda_ms(lambda: replay.replay_keys(
+      s.packed, s.nbytes, s.n_chains), 3),
+    "sort": cuda_ms(lambda: torch.sort(keys, 1), 3),
+    "replay_positions": cuda_ms(lambda: replay.replay_positions(
+      skeys, cls, s.nodes, h.sx, h.sy), 3),
+    "paint_vcg": cuda_ms(lambda: replay.paint_vcg(
+      ids, h.sx, h.sy, s.permissible), 3),
+    "ccl_min": cuda_ms(lambda: ccl.ccl_min(vcg), 3),
+    "roots_from_tgt": cuda_ms(lambda: ccl.roots_from_tgt(tgt, cap2), 3),
+    "plant K=0": cuda_ms(lambda: ccl.plant(L, roots), 3),
+    "label table": cuda_ms(table, 3),
+    "plant K=1": cuda_ms(lambda: ccl.plant(L, roots, Tp), 3),
+    "crc32c": cuda_ms(lambda: crc32c.crc32c_rows(cc), 3),
+    "v2": cuda_ms(v2, 3),
+    "v1": cuda_ms(v1, 3),
   }
 
 

@@ -5,24 +5,38 @@ hand-written CUDA kernels for Hopper (sm_90a) in csrc/. It reuses the
 reference's host layer (crackle_tpu.headers, lib, codec, ops, models,
 native), none of which imports JAX, and never imports JAX itself.
 
-  stream = upload_stream(binary, torch.device("cuda"))
+  stream = upload_stream(binary, torch.device("cuda"))  # flat or pins
   labels, cc, N = stream.decode_window(0, stream.head.sz, check_crcs=True)
+
+  arr = CrackleDeviceArray(binary, "cuda")
+  cutout = arr[100:300, 50:450, 200:264]  # a uint32/uint64 CUDA tensor
+  counts = arr.voxel_counts()             # stats kernel on the card
 
 On a CUDA tensor each kernel wrapper launches its kernel (or raises);
 on a CPU tensor it runs the kernel's plain PyTorch version.
 """
+from .array import CrackleDeviceArray
 from .kernels._build import LAUNCHES, reset_launches
-from .kernels.ccl import ccl_paint
-from .kernels.decode import decode_slices_full_plant, decode_slices_to_ccl
+from .kernels.ccl import (
+  ccl_min, ccl_paint, ccl_paint_v2, plant, roots_from_tgt,
+)
+from .kernels.decode import (
+  decode_slices_full_pins, decode_slices_full_plant, decode_slices_to_ccl,
+)
 from .kernels.engine import (
   CrackFormat, DeviceStream, FormatError, decode_window_ccl_device,
   params_from_jax, prepare_slice_inputs, upload_stream,
 )
 from .kernels.replay import paint_vcg, replay_keys, replay_positions
+from .kernels.stats import slice_stats
+from .ops.analytics import bounding_boxes, centroids, voxel_counts
 
 __all__ = [
-  "LAUNCHES", "reset_launches", "ccl_paint", "decode_slices_full_plant",
+  "CrackleDeviceArray", "LAUNCHES", "reset_launches", "ccl_min",
+  "ccl_paint", "ccl_paint_v2", "plant", "roots_from_tgt",
+  "decode_slices_full_pins", "decode_slices_full_plant",
   "decode_slices_to_ccl", "CrackFormat", "DeviceStream", "FormatError",
   "decode_window_ccl_device", "params_from_jax", "prepare_slice_inputs",
   "upload_stream", "paint_vcg", "replay_keys", "replay_positions",
+  "slice_stats", "bounding_boxes", "centroids", "voxel_counts",
 ]

@@ -1,0 +1,111 @@
+"""A numpy-like facade over a compressed stream held on a torch device.
+
+Counterpart of crackle_tpu/array.py:503-597 (CrackleDeviceArray).
+"""
+import numpy as np
+import torch
+
+from crackle_tpu import codec
+from crackle_tpu.array import reify_slices
+from crackle_tpu.ops import analytics as _host_analytics
+
+from .kernels import engine as _engine
+from .ops import analytics as _analytics
+
+
+class CrackleDeviceArray:
+  """Read-only numpy-like facade over a compressed stream resident on a
+  torch device (engine.DeviceStream).
+
+  The parsed sections live on the device (about the compressed size)
+  and every cutout decodes there, returning a tensor on the device with
+  no host round trip. Flat and condensed-pins streams are taken, markov
+  ones too (their rank decode is a host cost paid once, at upload).
+  Raises ValueError where upload_stream declines the stream; label and
+  metadata queries go to the host codec on the original bytes."""
+
+  def __init__(self, binary: bytes, device="cuda"):
+    self.binary = binary
+    self.stream = _engine.upload_stream(binary, device)
+    if self.stream is None:
+      raise ValueError(
+        "stream is not eligible for device serving (the "
+        "crackle_tpu_torch.engine logger records the reason); use "
+        "crackle_tpu.CrackleArray for the host path")
+
+  @property
+  def device(self) -> torch.device:
+    return self.stream.device
+
+  @property
+  def shape(self):
+    head = self.stream.head
+    return (head.sx, head.sy, head.sz)
+
+  @property
+  def dtype(self):
+    return self.stream.head.dtype
+
+  @property
+  def ndim(self) -> int:
+    return 3
+
+  @property
+  def nbytes_device(self) -> int:
+    return self.stream.nbytes_device
+
+  def header(self):
+    return self.stream.head
+
+  def labels(self):
+    return codec.labels(self.binary)
+
+  def num_labels(self) -> int:
+    return codec.num_labels(self.binary)
+
+  def contains(self, label) -> bool:
+    return codec.contains(self.binary, label)
+
+  def check_crcs(self) -> None:
+    """Decode every slice and check its crack CRC32C on the device
+    (raises FormatError on corruption)."""
+    self.stream.decode_window(0, self.shape[2], check_crcs=True)
+
+  def decode_window(self, z_start: int, z_end: int,
+                    check_crcs: bool = False):
+    """(labels, cc, N) tensors on the device for [z_start, z_end)."""
+    return self.stream.decode_window(z_start, z_end, check_crcs=check_crcs)
+
+  def __getitem__(self, slcs):
+    """A cutout with CrackleArray's indexing semantics, as a tensor on
+    the device (uint32, or uint64 for labels wider than 32 bits)."""
+    sx, sy, sz = self.shape
+    slices = reify_slices(slcs, sx, sy, sz)
+    if isinstance(slcs, (slice, int, np.integer)):
+      slcs = (slcs,)
+    while len(slcs) < 3:
+      slcs += (slice(None, None, None),)
+
+    z0, z1 = slices[2].start, slices[2].stop
+    labels, _cc, _N = self.stream.decode_window(z0, z1)
+    vol = labels.reshape(z1 - z0, sy, sx).permute(2, 1, 0)
+    zslc = slice(None, None, slices[2].step)
+    if isinstance(slcs[2], (int, np.integer)):
+      zslc = 0
+    return vol[(slcs[0], slcs[1], zslc)]
+
+  def voxel_counts(self, label=None):
+    return _analytics.voxel_counts(self.binary, label=label,
+                                   device=self.device)
+
+  def centroids(self, label=None):
+    return _analytics.centroids(self.binary, label=label,
+                                device=self.device)
+
+  def bounding_boxes(self, label=None, no_slice_conversion: bool = False):
+    return _analytics.bounding_boxes(
+      self.binary, label=label, no_slice_conversion=no_slice_conversion,
+      device=self.device)
+
+  def point_cloud(self, label=None):
+    return _host_analytics.point_cloud(self.binary, label=label)

@@ -2,8 +2,9 @@
 
 Counterpart of crackle_tpu/kernels/__init__.py (the JAX compile
 cache). At first use, every ``crackle_tpu_torch/csrc/*.cu`` is compiled
-by ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, which is loaded through ``ctypes``. No PyTorch header is
+by ``nvcc`` for ``sm_90a``, one process per source, all at once, and
+linked into one shared library with a plain C interface, which is
+loaded through ``ctypes``. No PyTorch header is
 included, so the build takes seconds. The library lands in the
 checkout's ``build/`` directory under a name that hashes the sources,
 so an edited source never loads a stale build.
@@ -23,12 +24,12 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "crackle_tpu_torch")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset_launches(); each wrapper
 # adds one where it launches its kernel and nowhere else
 LAUNCHES = {"replay_keys": 0, "replay_positions": 0, "paint_vcg": 0,
-            "ccl_paint": 0}
+            "ccl_paint": 0, "ccl_min": 0, "plant": 0, "slice_stats": 0}
 
 # wall seconds the last build took (0.0 when it was found built)
 build_seconds = 0.0
@@ -45,6 +46,12 @@ _SIGNATURES = {
   "paint_vcg_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
   # vcg, T, L, cc, N, painted, B, sx, sy, K, cap_n, stream
   "ccl_paint_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+  # vcg, L, tgt, B, sx, sy, stream
+  "ccl_min_launch": [_P, _P, _P, _I, _I, _I, _P],
+  # L, roots, T, cc, painted, B, n, K, cap_n, stream
+  "plant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+  # cc, out, B, sx, sy, cap_n, stream
+  "slice_stats_launch": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -77,15 +84,31 @@ def library():
   if not os.path.exists(so):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = ([_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-o", tmp]
-           + [s for s in srcs if s.endswith(".cu")])
     t0 = time.perf_counter()
+    objs, jobs = [], []
+    for src in (s for s in srcs if s.endswith(".cu")):
+      obj = f"{tmp}.{os.path.basename(src)}.o"
+      cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC, "-c", "-o", obj, src]
+      objs.append(obj)
+      jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.PIPE, text=True)))
+    for cmd, proc in jobs:
+      _, err = proc.communicate()
+      if proc.returncode != 0:
+        for _, other in jobs:
+          other.kill()
+          other.wait()
+        raise RuntimeError(
+          f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+    cmd = [_nvcc(), "-shared", "-o", tmp] + objs
     res = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
     if res.returncode != 0:
       raise RuntimeError(
         f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}")
+    build_seconds = time.perf_counter() - t0
     os.replace(tmp, so)
+    for obj in objs:
+      os.remove(obj)
   lib = ctypes.CDLL(so)
   for name, argtypes in _SIGNATURES.items():
     fn = getattr(lib, name)

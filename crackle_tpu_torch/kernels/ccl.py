@@ -1,8 +1,10 @@
 """Per-slice 4-connected CCL with first-visit numbering and label paint.
 
-Counterpart of crackle_tpu/kernels/ccl_pallas.py (ccl_batch_traced and
-ccl_paint_traced). The kernel (csrc/ccl.cu) is a union-find with union
-by min; its plain version below follows decode._ccl_batch: alternating
+Counterpart of crackle_tpu/kernels/ccl_pallas.py: ccl_batch_traced and
+ccl_paint_traced (``ccl_paint``), and the v2 split ccl_min_traced,
+roots_from_tgt and plant_traced (``ccl_min``, ``roots_from_tgt``,
+``plant``). The kernels (csrc/ccl.cu) share a union-find with union by
+min; the plain versions below follow decode._ccl_batch: alternating
 row/column segmented-min sweeps to a fixed point, then the first-visit
 renumber, plus the table paint.
 """
@@ -23,8 +25,9 @@ def _seg_min(L, blocked, dim):
   return seg * big - torch.cummax(seg * big - L, dim).values
 
 
-def ccl_plain(vcg):
-  """vcg (B, sy, sx) int32 -> (cc (B, sy*sx) int32, N (B,) int32)."""
+def _min_image(vcg):
+  """vcg (B, sy, sx) int32 -> the min-index image (B, sy*sx) int64:
+  each pixel's component id is the least raster index in it."""
   B, sy, sx = vcg.shape
   dev = vcg.device
   left_ok = (vcg & 0b0010) > 0
@@ -52,9 +55,20 @@ def ccl_plain(vcg):
     if torch.equal(L2, L):
       break
     L = L2
-  pf = L.reshape(B, n)
-  is_root = pf == torch.arange(n, device=dev)[None, :]
-  rank = torch.cumsum(is_root.to(torch.int64), 1) - 1
+  return L.reshape(B, n)
+
+
+def _root_ranks(pf):
+  """(is_root, first-visit rank of every root) of a min-index image."""
+  n = pf.shape[1]
+  is_root = pf == torch.arange(n, device=pf.device)[None, :]
+  return is_root, torch.cumsum(is_root.to(torch.int64), 1) - 1
+
+
+def ccl_plain(vcg):
+  """vcg (B, sy, sx) int32 -> (cc (B, sy*sx) int32, N (B,) int32)."""
+  pf = _min_image(vcg)
+  _, rank = _root_ranks(pf)
   cc = torch.gather(rank, 1, pf)
   return cc.to(torch.int32), (rank[:, -1] + 1).to(torch.int32)
 
@@ -72,14 +86,18 @@ def ccl_paint_plain(vcg, T=None):
   return cc, N, (paint_plain(cc, T) if T is not None else None)
 
 
+def _check_vcg(name, vcg):
+  if vcg.dtype != torch.int32 or vcg.dim() != 3 or not vcg.is_contiguous():
+    raise ValueError(f"{name}: want a contiguous (B, sy, sx) int32 vcg, "
+                     f"got {tuple(vcg.shape)} {vcg.dtype}")
+
+
 def ccl_paint(vcg, T=None):
   """Kernel 4: vcg (B, sy, sx) int32 and an optional paint table T
   (B, K, cap_n) int32, K in {1, 2}, cap_n <= PAINT_CAP_N ->
   (cc (B, sy*sx) int32, N (B,) int32, painted (B, K, sy*sx) int32 or
   None when T is None)."""
-  if vcg.dtype != torch.int32 or vcg.dim() != 3 or not vcg.is_contiguous():
-    raise ValueError(f"ccl_paint: want a contiguous (B, sy, sx) int32 "
-                     f"vcg, got {tuple(vcg.shape)} {vcg.dtype}")
+  _check_vcg("ccl_paint", vcg)
   B, sy, sx = vcg.shape
   if T is not None:
     if (T.dtype != torch.int32 or T.dim() != 3 or T.shape[0] != B
@@ -108,4 +126,125 @@ def ccl_paint(vcg, T=None):
       B, sx, sy, K, cap_n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("ccl_paint", err)
     _build.LAUNCHES["ccl_paint"] += 1
+  return cc, N, painted
+
+
+def ccl_min_plain(vcg):
+  B, sy, sx = vcg.shape
+  pf = _min_image(vcg)
+  is_root, rank = _root_ranks(pf)
+  tgt = torch.where(is_root, rank, -1)
+  return (pf.to(torch.int32).reshape(B, sy, sx),
+          tgt.to(torch.int32).reshape(B, sy, sx))
+
+
+def ccl_min(vcg):
+  """Kernel 5: vcg (B, sy, sx) int32 -> (L, tgt), both (B, sy, sx)
+  int32: L is each pixel's component id, the least raster index of its
+  component; tgt is the first-visit rank at roots (L[p] == p) and -1
+  elsewhere (ccl_pallas.ccl_min_traced)."""
+  _check_vcg("ccl_min", vcg)
+  if vcg.device.type != "cuda":
+    return ccl_min_plain(vcg)
+  B, sy, sx = vcg.shape
+  L = torch.empty_like(vcg)
+  tgt = torch.empty_like(vcg)
+  if B and sx * sy:
+    err = _build.library().ccl_min_launch(
+      vcg.data_ptr(), L.data_ptr(), tgt.data_ptr(), B, sx, sy,
+      torch.cuda.current_stream(vcg.device).cuda_stream)
+    _build.check("ccl_min", err)
+    _build.LAUNCHES["ccl_min"] += 1
+  return L, tgt
+
+
+def roots_from_tgt(tgt, cap_n: int):
+  """Sorted component minima per slice (first-visit order), padded with
+  n = sy*sx, from ccl_min's tgt: roots[b, tgt[b, p]] = p. Returns
+  (roots (B, cap_n) int32, N (B,) int32). Ranks at or past cap_n are
+  dropped, as the reference's one-hot scatter drops them."""
+  B = tgt.shape[0]
+  n = tgt[0].numel() if B else 0
+  tf = tgt.reshape(B, n).to(torch.int64)
+  N = (tf.max(1).values + 1).to(torch.int32) if n else \
+    torch.zeros(B, dtype=torch.int32, device=tgt.device)
+  roots = torch.full((B, cap_n + 1), n, dtype=torch.int32,
+                     device=tgt.device)
+  idx = torch.where((tf >= 0) & (tf < cap_n), tf, cap_n)
+  src = torch.arange(n, dtype=torch.int32, device=tgt.device)
+  roots.scatter_(1, idx, src.expand(B, n))
+  return roots[:, :cap_n].contiguous(), N
+
+
+def _pow2_cap(cap_n: int) -> int:
+  return max(8, 1 << max(int(cap_n) - 1, 0).bit_length())
+
+
+def plant_plain(L, roots, T):
+  B = L.shape[0]
+  n = L[0].numel() if B else 0
+  cap_n = roots.shape[1]
+  lf = L.reshape(B, n).contiguous()
+  k = torch.searchsorted(roots.contiguous(), lf)
+  kc = torch.clamp(k, max=cap_n - 1)
+  hit = ((k < cap_n) & (torch.gather(roots, 1, kc) == lf)
+         & (lf >= 0) & (lf < n))
+  cc = torch.where(hit, k, 0).to(torch.int32)
+  K = 0 if T is None else T.shape[1]
+  if not K:
+    return cc, torch.zeros((B, 0, n), dtype=torch.int32, device=L.device)
+  got = torch.gather(T, 2, kc[:, None, :].expand(-1, K, -1))
+  return cc, torch.where(hit[:, None, :], got, 0)
+
+
+def plant(L, roots, T=None):
+  """Kernel 6: the min-index image L (B, sy, sx) int32, sorted roots
+  (B, cap_n) int32 padded with sy*sx, and value tables T (B, K, cap_n)
+  int32 with K in {1, 2} (or None for K = 0) -> (cc (B, sy*sx) int32,
+  painted (B, K, sy*sx) int32): where roots[k] == L[p], cc[p] = k and
+  painted[:, p] = T[:, k]; elsewhere 0 (ccl_pallas.plant_traced)."""
+  if L.dtype != torch.int32 or L.dim() != 3 or not L.is_contiguous():
+    raise ValueError(f"plant: want a contiguous (B, sy, sx) int32 L, got "
+                     f"{tuple(L.shape)} {L.dtype}")
+  B, sy, sx = L.shape
+  if (roots.dtype != torch.int32 or roots.dim() != 2
+      or roots.shape[0] != B or not roots.is_contiguous()
+      or not 1 <= roots.shape[1] <= PAINT_CAP_N):
+    raise ValueError(f"plant: bad roots {tuple(roots.shape)} {roots.dtype}")
+  cap_n = roots.shape[1]
+  if T is not None and (
+      T.dtype != torch.int32 or T.dim() != 3 or T.shape[0] != B
+      or T.shape[1] not in (1, 2) or T.shape[2] != cap_n
+      or not T.is_contiguous()):
+    raise ValueError(f"plant: bad value table {tuple(T.shape)} {T.dtype}")
+  if roots.device != L.device or (T is not None and T.device != L.device):
+    raise ValueError("plant: L, roots and T on different devices")
+  if L.device.type != "cuda":
+    return plant_plain(L, roots, T)
+  K = 0 if T is None else T.shape[1]
+  n = sx * sy
+  dev = L.device
+  cc = torch.empty((B, n), dtype=torch.int32, device=dev)
+  painted = torch.empty((B, K, n), dtype=torch.int32, device=dev)
+  if B and n:
+    err = _build.library().plant_launch(
+      L.data_ptr(), roots.data_ptr(), T.data_ptr() if K else None,
+      cc.data_ptr(), painted.data_ptr() if K else None, B, n, K, cap_n,
+      torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("plant", err)
+    _build.LAUNCHES["plant"] += 1
+  return cc, painted
+
+
+def ccl_paint_v2(vcg, T):
+  """ccl_min -> roots_from_tgt -> plant: the same (cc, N, painted) as
+  ccl_paint(vcg, T) from one converge pass and a plant
+  (ccl_pallas.ccl_paint_v2)."""
+  cap_n = T.shape[2]
+  cap2 = _pow2_cap(cap_n)
+  if cap2 != cap_n:
+    T = torch.nn.functional.pad(T, (0, cap2 - cap_n))
+  L, tgt = ccl_min(vcg)
+  roots, N = roots_from_tgt(tgt, cap2)
+  cc, painted = plant(L, roots, T)
   return cc, N, painted

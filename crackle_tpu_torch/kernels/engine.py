@@ -1,10 +1,11 @@
 """Host glue for the torch decode engine.
 
-Counterpart of crackle_tpu/kernels/engine.py for flat-label streams:
-parses the container sections with the reference's host layer (which
-needs no JAX), pads the per-slice crack streams into fixed-shape
-tensors, parks them on a torch device as a DeviceStream, and decodes
-windows there with the kernels of this package.
+Counterpart of crackle_tpu/kernels/engine.py for flat and
+condensed-pins streams: parses the container sections with the
+reference's host layer (which needs no JAX), pads the per-slice crack
+streams and pin tables into fixed-shape tensors, parks them on a torch
+device as a DeviceStream, and decodes windows there with the kernels of
+this package.
 """
 import logging
 import os
@@ -137,23 +138,111 @@ def plant_table(uniq, cum, keys, z_start: int, z_end: int, cap_n: int):
   ], axis=1)
 
 
-def params_from_jax(inputs, T=None, device="cpu"):
+def _pack_by_slice(B: int, zi: np.ndarray, cols: list, fills: list):
+  """Group (zi, col...) tuples into per-slice padded (B, CAP) arrays."""
+  order = np.argsort(zi, kind='stable')
+  zi = zi[order]
+  counts = np.bincount(zi, minlength=B)
+  CAP = _next_pow2(max(int(counts.max()) if B else 0, 1))
+  outs = []
+  starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+  within = np.arange(len(zi)) - np.repeat(starts, counts)
+  for col, fill in zip(cols, fills):
+    out = np.full((B, CAP), fill, np.int32)
+    out[zi, within] = col[order]
+    outs.append(out)
+  return outs
+
+
+def _pins_device_tables(head, binary: bytes, z_start: int, z_end: int):
+  """Host parse of a condensed-pins section into per-slice device
+  scatter inputs (labels.hpp:508-617 is the serial equivalent).
+
+  Returns (pin_locs, pin_labs, single_ids, single_labs, bg32, cap_n)
+  or None when stored labels exceed 32 bits."""
+  if head.stored_data_width > 4:
+    return None
+  lb = bytes(_codec.raw_labels(binary))
+  layout = _labels_ops.decode_condensed_pins_layout(head, lb)
+  pins, singles = _labels_ops.decode_condensed_pins(head, lb)
+  cpg = layout["components_per_grid"].astype(np.int64)
+  cum = np.concatenate([[0], np.cumsum(cpg)])
+  B = z_end - z_start
+  sxy = head.sx * head.sy
+
+  # cc singles: global component ids -> (slice, window-local id)
+  ids, labs = [], []
+  for label, ccs in singles.items():
+    if len(ccs):
+      ids.append(np.asarray(ccs, np.int64))
+      labs.append(np.full(len(ccs), np.uint32(label).view(np.int32)))
+  if ids:
+    ids = np.concatenate(ids)
+    labs = np.concatenate(labs)
+    zs = np.searchsorted(cum, ids, side='right') - 1
+    keep = (zs >= z_start) & (zs < z_end)
+    ids, labs, zs = ids[keep], labs[keep], zs[keep]
+    local = (ids - cum[zs]).astype(np.int32)
+    single_ids, single_labs = _pack_by_slice(
+      B, (zs - z_start).astype(np.int64), [local, labs], [-1, 0])
+  else:
+    single_ids = np.full((B, 1), -1, np.int32)
+    single_labs = np.zeros((B, 1), np.int32)
+
+  # pins: (index, depth) -> one (slice, in-slice position) per voxel
+  locs, labs2, zz = [], [], []
+  for label, plist in pins.items():
+    for index, depth in plist:
+      z0 = index // sxy
+      loc = index - z0 * sxy
+      zlo = max(z0, z_start)
+      zhi = min(z0 + depth, z_end - 1)
+      if zhi < zlo:
+        continue
+      n = zhi - zlo + 1
+      zz.append(np.arange(zlo - z_start, zhi - z_start + 1))
+      locs.append(np.full(n, loc, np.int64))
+      labs2.append(np.full(n, np.uint32(label).view(np.int32)))
+  if zz:
+    zz = np.concatenate(zz)
+    locs = np.concatenate(locs).astype(np.int32)
+    labs2 = np.concatenate(labs2)
+    pin_locs, pin_labs = _pack_by_slice(
+      B, zz, [locs, labs2], [-1, 0])
+  else:
+    pin_locs = np.full((B, 1), -1, np.int32)
+    pin_labs = np.zeros((B, 1), np.int32)
+
+  n_per = cpg[z_start:z_end]
+  cap_n = _next_pow2(max(int(n_per.max()) if len(n_per) else 1, 8))
+  bg32 = int(np.uint32(layout["bgcolor"]).view(np.int32))
+  return pin_locs, pin_labs, single_ids, single_labs, bg32, cap_n
+
+
+def _i32(a, dev):
+  return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+
+def params_from_jax(inputs, T=None, device="cpu", pins=None):
   """Carry the reference's decode state across: the numpy arrays of
   crackle_tpu.kernels.engine.prepare_slice_inputs (or this module's),
-  plus an optional plant table T, as tensors on `device`."""
+  plus an optional plant table T, and optional pins tables (the tuple
+  of crackle_tpu.kernels.engine._pins_device_tables, or this module's),
+  as tensors on `device`. The pins come back as (pin_locs, pin_labs,
+  single_ids, single_labs, bg32, cap_n) under "pins"."""
   dev = torch.device(device)
   out = {
     "packed": torch.from_numpy(np.ascontiguousarray(
       inputs["packed"], np.uint8)).to(dev),
-    "nbytes": torch.from_numpy(np.ascontiguousarray(
-      inputs["nbytes"], np.int32)).to(dev),
-    "nodes": torch.from_numpy(np.ascontiguousarray(
-      inputs["nodes"], np.int32)).to(dev),
-    "n_chains": torch.from_numpy(np.ascontiguousarray(
-      inputs["n_chains"], np.int32)).to(dev),
+    "nbytes": _i32(inputs["nbytes"], dev),
+    "nodes": _i32(inputs["nodes"], dev),
+    "n_chains": _i32(inputs["n_chains"], dev),
   }
   if T is not None:
-    out["T"] = torch.from_numpy(np.ascontiguousarray(T, np.int32)).to(dev)
+    out["T"] = _i32(T, dev)
+  if pins is not None:
+    out["pins"] = tuple(_i32(a, dev) for a in pins[:4]) + (
+      int(pins[4]), int(pins[5]))
   return out
 
 
@@ -183,15 +272,17 @@ def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int,
 
 
 class DeviceStream:
-  """A compressed flat-label crackle stream resident on a torch device.
+  """A compressed flat-label or condensed-pins crackle stream resident
+  on a torch device.
 
   The parsed sections are uploaded once (about the compressed size);
   every window decode after that runs from device memory with no host
   transfer, and check_crcs=True verifies the per-slice crack CRC32Cs
-  on the device as well."""
+  on the device as well. A flat stream carries its plant table T, a
+  pins stream its pin and single tables (pins) instead."""
 
   def __init__(self, head, packed, nbytes, nodes, n_chains, T,
-               permissible: bool, crcs=None):
+               permissible: bool, crcs=None, pins=None):
     self.head = head
     self.packed = packed
     self.nbytes = nbytes
@@ -200,6 +291,9 @@ class DeviceStream:
     self.T = T
     self.permissible = permissible
     self.crcs = crcs  # (sz,) int64 stored per-slice crack crc32cs
+    # pins streams: (pin_locs, pin_labs, single_ids, single_labs, bg32,
+    # cap_n), the four per-slice tables on the device
+    self.pins = pins
 
   @property
   def device(self) -> torch.device:
@@ -207,7 +301,11 @@ class DeviceStream:
 
   @property
   def nbytes_device(self) -> int:
-    arrs = [self.packed, self.nbytes, self.nodes, self.n_chains, self.T]
+    arrs = [self.packed, self.nbytes, self.nodes, self.n_chains]
+    if self.T is not None:
+      arrs.append(self.T)
+    if self.pins is not None:
+      arrs.extend(self.pins[:4])
     if self.crcs is not None:
       arrs.append(self.crcs)
     return sum(a.numel() * a.element_size() for a in arrs)
@@ -227,10 +325,18 @@ class DeviceStream:
     def win(a):
       return a[z_start:z_end]
 
-    labels, cc, N = _dec.decode_slices_full_plant(
-      win(self.packed), win(self.nbytes), win(self.nodes),
-      win(self.n_chains), win(self.T), sx=self.head.sx, sy=self.head.sy,
-      permissible=self.permissible)
+    if self.pins is not None:
+      pl_, pb_, si_, sl_, bg32, cap_n = self.pins
+      labels, cc, N = _dec.decode_slices_full_pins(
+        win(self.packed), win(self.nbytes), win(self.nodes),
+        win(self.n_chains), win(pl_), win(pb_), win(si_), win(sl_), bg32,
+        sx=self.head.sx, sy=self.head.sy, permissible=self.permissible,
+        cap_n=cap_n)
+    else:
+      labels, cc, N = _dec.decode_slices_full_plant(
+        win(self.packed), win(self.nbytes), win(self.nodes),
+        win(self.n_chains), win(self.T), sx=self.head.sx,
+        sy=self.head.sy, permissible=self.permissible)
     if check_crcs and self.crcs is not None:
       bad = _crc.crc32c_rows(cc) != self.crcs[z_start:z_end]
       if bool(bad.any()):
@@ -239,14 +345,26 @@ class DeviceStream:
     return labels, cc, N
 
 
+def _stored_crcs(head, binary, dev):
+  if head.format_version > 0:
+    stored = _codec.crack_crcs(binary)
+    if stored is not None:
+      return torch.from_numpy(
+        np.asarray(stored, dtype='<u4').astype(np.int64)).to(dev)
+  return None
+
+
 def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
   """Parse a crackle stream and park it on `device` as a DeviceStream.
   Returns None (with a logged reason) where the reference's host rules
-  decline the stream: a label format other than flat, a slice longer
-  than MAX_DEVICE_CAP codepoints, or more than PAINT_CAP_N components
-  in a slice."""
+  decline the stream: a label format other than flat or condensed pins,
+  a slice longer than MAX_DEVICE_CAP codepoints, more than PAINT_CAP_N
+  components in a slice of a flat stream, or pins labels stored wider
+  than 32 bits."""
   dev = _device(device)
   head = _codec.header(binary)
+  if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
+    return _upload_pins_stream(head, binary, dev)
   if head.label_format != LabelFormat.FLAT:
     return _fallback("upload_stream",
                      f"label format {head.label_format} != FLAT")
@@ -261,13 +379,26 @@ def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
     return _fallback("upload_stream",
                      f"cap_n={cap_n} > PAINT_CAP_N={_ccl.PAINT_CAP_N}")
   T = plant_table(uniq, cum, keys, 0, head.sz, cap_n)
-  crcs = None
-  if head.format_version > 0:
-    stored = _codec.crack_crcs(binary)
-    if stored is not None:
-      crcs = torch.from_numpy(
-        np.asarray(stored, dtype='<u4').astype(np.int64)).to(dev)
   t = params_from_jax(inputs, T, device=dev)
   return DeviceStream(
     head, t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["T"],
-    permissible=head.crack_format == CrackFormat.PERMISSIBLE, crcs=crcs)
+    permissible=head.crack_format == CrackFormat.PERMISSIBLE,
+    crcs=_stored_crcs(head, binary, dev))
+
+
+def _upload_pins_stream(head, binary: bytes, dev):
+  """Park a condensed-pins stream on `dev`: packed crack sections plus
+  the per-slice pin and single tables, so window decodes need no
+  further host parsing or copies (engine.py:633-661)."""
+  inputs = prepare_slice_inputs(binary, 0, head.sz)
+  if not _device_cap_ok(inputs):
+    return _fallback("upload_stream", "stream exceeds MAX_DEVICE_CAP")
+  tables = _pins_device_tables(head, binary, 0, head.sz)
+  if tables is None:
+    return _fallback("upload_stream",
+                     "pins tables unavailable (stored width > 4)")
+  t = params_from_jax(inputs, device=dev, pins=tables)
+  return DeviceStream(
+    head, t["packed"], t["nbytes"], t["nodes"], t["n_chains"], None,
+    permissible=head.crack_format == CrackFormat.PERMISSIBLE,
+    crcs=_stored_crcs(head, binary, dev), pins=t["pins"])

@@ -98,3 +98,90 @@ def test_ccl_paint_rejects_bad_inputs():
   with pytest.raises(ValueError):
     ccl.ccl_paint(vcg, torch.zeros((2, 1, ccl.PAINT_CAP_N + 1),
                                    dtype=torch.int32))
+
+
+def _v2_inputs(seed, B=3, sy=24, sx=40):
+  """The inputs of test_jax_decode.test_ccl_v2_plant_matches_v1."""
+  return labels_to_vcg(smooth_labels(B, sy, sx, 6, seed))
+
+
+@pytest.mark.parametrize("sy,sx", [(24, 40), (17, 33), (1, 7), (9, 1)])
+def test_ccl_min_matches_pallas_interpret(monkeypatch, sy, sx):
+  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+  vcg = _v2_inputs(sy + sx, 2, sy, sx)
+  want_L, want_tgt = ccl_pallas.ccl_min_traced(
+    jnp.asarray(vcg.reshape(2, -1)), sx, sy)
+  L, tgt = ccl.ccl_min(torch.from_numpy(vcg))
+  assert L.dtype == torch.int32 and L.shape == (2, sy, sx)
+  np.testing.assert_array_equal(L.numpy(), np.asarray(want_L))
+  np.testing.assert_array_equal(tgt.numpy(), np.asarray(want_tgt))
+
+
+@pytest.mark.parametrize("K", [0, 1, 2])
+def test_roots_and_plant_match_pallas_interpret(monkeypatch, K):
+  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+  rng = np.random.RandomState(20 + K)
+  B, sy, sx, cap_n = 3, 24, 40, 512
+  vcg = jnp.asarray(_v2_inputs(11).reshape(B, -1))
+  L, tgt = ccl_pallas.ccl_min_traced(vcg, sx, sy)
+  want_roots, want_N = ccl_pallas.roots_from_tgt(tgt, cap_n)
+  roots, N = ccl.roots_from_tgt(torch.from_numpy(np.array(tgt)), cap_n)
+  np.testing.assert_array_equal(roots.numpy(), np.asarray(want_roots))
+  np.testing.assert_array_equal(N.numpy(), np.asarray(want_N))
+  T = rng.randint(-(1 << 31), 1 << 31, size=(B, K, cap_n),
+                  dtype=np.int64).astype(np.int32)
+  want_cc, want_p = ccl_pallas.plant_traced(L, want_roots, jnp.asarray(T),
+                                            sx, sy)
+  cc, painted = ccl.plant(torch.from_numpy(np.array(L)), roots,
+                          torch.from_numpy(T) if K else None)
+  np.testing.assert_array_equal(cc.numpy(), np.asarray(want_cc))
+  assert painted.shape == (B, K, sy * sx)
+  np.testing.assert_array_equal(painted.numpy(), np.asarray(want_p))
+
+
+@pytest.mark.parametrize("cap_n", [512, 300])
+def test_ccl_paint_v2_matches_v1(cap_n):
+  """test_jax_decode.test_ccl_v2_plant_matches_v1 for the port: the v2
+  composition equals ccl_paint (a non-power-of-two table is padded)."""
+  rng = np.random.RandomState(11)
+  vcg = torch.from_numpy(_v2_inputs(11))
+  T = torch.from_numpy(
+    rng.randint(1, 1 << 20, size=(3, 1, cap_n)).astype(np.int32))
+  for got, want in zip(ccl.ccl_paint_v2(vcg, T), ccl.ccl_paint(vcg, T)):
+    assert torch.equal(got, want)
+
+
+def test_pow2_cap_matches_reference():
+  for n in (0, 1, 7, 8, 9, 300, 512, 513, 2048):
+    assert ccl._pow2_cap(n) == ccl_pallas._pow2_cap(n)
+
+
+def test_plant_misses_are_zero():
+  """Ids that no root holds, the padding value n, and ids outside
+  [0, n) plant 0 for cc and every channel."""
+  n = 6
+  L = torch.tensor([[[0, 2, 3], [6, -1, 9]]], dtype=torch.int32)
+  roots = torch.tensor([[0, 3, 6, 6]], dtype=torch.int32)
+  T = torch.tensor([[[10, 11, 12, 13], [20, 21, 22, 23]]],
+                   dtype=torch.int32)
+  cc, painted = ccl.plant(L, roots, T)
+  assert cc.tolist() == [[0, 0, 1, 0, 0, 0]]
+  assert painted.tolist() == [[[10, 0, 11, 0, 0, 0], [20, 0, 21, 0, 0, 0]]]
+  assert L.numel() == n
+
+
+def test_plant_rejects_bad_inputs():
+  L = torch.zeros((2, 4, 4), dtype=torch.int32)
+  roots = torch.zeros((2, 8), dtype=torch.int32)
+  with pytest.raises(ValueError):
+    ccl.plant(L.to(torch.int64), roots)
+  with pytest.raises(ValueError):
+    ccl.plant(L, roots[:1])
+  with pytest.raises(ValueError):
+    ccl.plant(L, torch.zeros((2, ccl.PAINT_CAP_N + 1), dtype=torch.int32))
+  with pytest.raises(ValueError):
+    ccl.plant(L, roots, torch.zeros((2, 1, 4), dtype=torch.int32))
+  with pytest.raises(ValueError):
+    ccl.plant(L, roots, torch.zeros((2, 3, 8), dtype=torch.int32))
+  with pytest.raises(ValueError):
+    ccl.ccl_min(L[:, 0])

@@ -10,10 +10,13 @@ import torch
 
 import crackle_tpu as crackle
 from crackle_tpu.headers import CrackFormat
-from crackle_tpu_torch.kernels import ccl, replay
+import crackle_tpu_torch as ct
+from crackle_tpu_torch.kernels import ccl, replay, stats
 from crackle_tpu_torch.kernels import engine as teng
 
 from test_jax_decode import CASES, random_volume
+from test_torch_ccl import labels_to_vcg, smooth_labels
+from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, spiral_volume
 
 pytestmark = pytest.mark.cuda
@@ -104,4 +107,90 @@ def test_paint_k2_matches_plain(dev):
   got = ccl.ccl_paint(vcg.to(dev), T.to(dev))
   want = ccl.ccl_paint(vcg, T)
   for g, w in zip(got, want):
-    assert torch.equal(g.cpu(), w)
+    assert torch.equal(g.cpu(), w.cpu())
+
+
+def _equal(got, want):
+  got, want = list(got), list(want)
+  assert len(got) == len(want)
+  for g, w in zip(got, want):
+    assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("sy,sx", [(37, 29), (64, 512), (1, 7)])
+def test_ccl_min_and_plant_match_plain(dev, sy, sx):
+  """ccl_min, then plant at K = 0, 1 and 2 on its roots, bit-equal to
+  the plain versions; the composition equals ccl_paint."""
+  rng = np.random.RandomState(sy + sx)
+  for vcg in (labels_to_vcg(smooth_labels(3, sy, sx, 6, sy)),
+              (rng.randint(0, 16, size=(3, sy, sx)) & 0b1010)
+              .astype(np.int32)):
+    vcg = torch.from_numpy(vcg)
+    L, tgt = ccl.ccl_min(vcg.to(dev))
+    torch.cuda.synchronize()
+    _equal((L, tgt), ccl.ccl_min_plain(vcg))
+    cap_n = ccl._pow2_cap(min(int((tgt.max() + 1).item()), 2048))
+    roots, N = ccl.roots_from_tgt(tgt, cap_n)
+    for K in (0, 1, 2):
+      T = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (3, K, cap_n),
+                                       dtype=np.int64).astype(np.int32))
+      got = ccl.plant(L, roots, T.to(dev) if K else None)
+      torch.cuda.synchronize()
+      _equal(got, ccl.plant_plain(L.cpu(), roots.cpu(), T if K else None))
+    if int(N.max()) <= cap_n:
+      _equal(ccl.ccl_paint_v2(vcg.to(dev), T.to(dev)),
+             ccl.ccl_paint(vcg.to(dev), T.to(dev)))
+
+
+def test_plant_misses_match_plain(dev):
+  """Ids that no root holds, roots padding (n) and ids outside [0, n)
+  plant 0 in the kernel as in the plain version."""
+  rng = np.random.RandomState(3)
+  B, sy, sx, cap_n = 4, 33, 65, 256
+  n = sy * sx
+  L = torch.from_numpy(rng.randint(-5, n + 5, (B, sy, sx)).astype(np.int32))
+  L[0, 0, :4] = n
+  roots = np.sort(rng.choice(n, (B, cap_n)), 1).astype(np.int32)
+  roots[:, 200:] = n
+  roots = torch.from_numpy(roots)
+  T = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (B, 2, cap_n),
+                                   dtype=np.int64).astype(np.int32))
+  got = ccl.plant(L.to(dev), roots.to(dev), T.to(dev))
+  torch.cuda.synchronize()
+  _equal(got, ccl.plant_plain(L, roots, T))
+
+
+@pytest.mark.parametrize("sy,sx,cap_n", [(40, 24, 64), (512, 512, 1024),
+                                         (8, 1024, 4096), (3, 5, 8)])
+def test_slice_stats_match_plain(dev, sy, sx, cap_n):
+  """The stats kernel against its plain version on a CCL image, and on
+  random ids with some at or past cap_n and some negative."""
+  rng = np.random.RandomState(sx)
+  cc, _, _ = ccl.ccl_paint_plain(torch.from_numpy(
+    labels_to_vcg(smooth_labels(3, sy, sx, 5, sy))))
+  noisy = torch.from_numpy(rng.randint(-3, cap_n + 9, (3, sy * sx))
+                           .astype(np.int32))
+  for ids in (cc, noisy):
+    got = stats.slice_stats(ids.to(dev), sx, sy, cap_n)
+    torch.cuda.synchronize()
+    _equal([got], [stats.slice_stats_plain(ids, sx, sy, cap_n)])
+
+
+def test_pins_stream_matches_cpu(dev):
+  """A condensed-pins stream decodes on the card as on the CPU."""
+  binary = crackle.compress(pins_volume(), allow_pins=1)
+  assert crackle.header(binary).label_format == 2
+  ct.reset_launches()
+  got = ct.upload_stream(binary, dev).decode_window(0, 10, check_crcs=True)
+  assert ct.LAUNCHES["ccl_min"] == 1 and ct.LAUNCHES["plant"] == 2
+  _equal(got, ct.upload_stream(binary, "cpu").decode_window(0, 10))
+
+
+def test_slice_stats_exact_past_2_24(dev):
+  """Int64 sums on the card: the x-sum 66,977,791 is exact."""
+  cc = torch.zeros((1, 512 * 512), dtype=torch.int32)
+  cc[0, 1] = 1
+  got = stats.slice_stats(cc.to(dev), 512, 512, 8)
+  torch.cuda.synchronize()
+  assert got[0, 0, :3].tolist() == [512 * 512 - 1, 66_977_791, 66_977_792]
+  _equal([got], [stats.slice_stats_plain(cc, 512, 512, 8)])

@@ -105,13 +105,26 @@ def test_upload_declines_where_the_reference_does(monkeypatch):
   assert ct.upload_stream(many, "cpu") is None
 
 
-def test_upload_declines_pins_streams(caplog):
-  """Condensed-pins streams are not ported yet: declined, with the
-  reason logged."""
-  pins = crackle.compress(blocky_volume((20, 18, 6), 4, 5, 32),
-                          allow_pins=1)
+def test_upload_declines_wide_pins_streams(monkeypatch, caplog):
+  """Pins streams whose labels are stored wider than 32 bits are
+  declined by both packages, with the reason logged. (The volume of
+  test_jax_decode.test_pins_device_stream_windows, offset by 2^40.)"""
+  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+  rng = np.random.RandomState(9)
+  vol = rng.randint(0, 4, size=(20, 18, 10)).astype(np.uint32)
+  for _ in range(12):
+    ax = rng.randint(0, 3)
+    m = rng.rand(*vol.shape) < 0.6
+    vol = np.where(m, np.roll(vol, 1, axis=ax), vol)
+  vol = np.asfortranarray(vol.astype(np.uint64) + np.uint64(1 << 40))
+  pins = crackle.compress(vol, allow_pins=1)
+  head = crackle.header(pins)
+  assert head.label_format == 2 and head.stored_data_width == 8
+  assert jeng.upload_stream(pins) is None
   assert ct.upload_stream(pins, "cpu") is None
-  assert "FLAT" in caplog.text
+  assert "stored width > 4" in caplog.text
+  with pytest.raises(ValueError, match="not eligible"):
+    ct.CrackleDeviceArray(pins, "cpu")
 
 
 def test_upload_to_cuda_without_cuda_raises():
@@ -138,6 +151,17 @@ def test_port_never_imports_jax():
     "got = lab.numpy().reshape(3, 10, 12).transpose(2, 1, 0)\n"
     "assert (got == vol).all()\n"
     "assert (crackle.decompress(crackle.compress(vol)) == vol).all()\n"
+    "blocky = np.asfortranarray(np.repeat(np.repeat(np.repeat(\n"
+    "  rng.randint(0, 3, (4, 4, 2)), 5, 0), 5, 1), 2, 2).astype(np.uint32))\n"
+    "pins = crackle.compress(blocky, allow_pins=1)\n"
+    "assert crackle.header(pins).label_format == 2\n"
+    "arr = ct.CrackleDeviceArray(pins, 'cpu')\n"
+    "assert (arr[:, :, 1:3].numpy() == blocky[:, :, 1:3]).all()\n"
+    "arr.check_crcs()\n"
+    "vc = ct.CrackleDeviceArray(crackle.compress(vol), 'cpu').voxel_counts()\n"
+    "assert vc == {int(k): int((vol == k).sum()) for k in np.unique(vol)}\n"
+    "assert ct.centroids(crackle.compress(vol), device='cpu')\n"
+    "assert ct.bounding_boxes(pins, device='cpu')\n"
     "print('jax' in sys.modules)\n")
   env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
   env["PYTHONPATH"] = ROOT
