@@ -3,19 +3,21 @@
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phases 8 to 11 several):
+Phases, one line each (phases 8 to 12 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
      the first 32 slices of the 512^3 bench volume, all of the 256^2 x
      128 one and of the 256^2 x 128 pins one (plus the u64 paint and a
      tile-seam run); ccl_min -> roots_from_tgt -> plant against
-     ccl_paint on the same VCGs. Meanwhile two child processes run the
-     host oracle: crackle_tpu.decompress on its numpy engine, the
+     ccl_paint and the compact-cancel kernels' edge ids against
+     replay_positions' on the same inputs. Meanwhile two child processes
+     run the host oracle on the port's own host layer
+     (crackle_tpu_torch.codec and its native library): decompress, the
      condensed-pins compress of the 512^3 volume, numpy label
-     statistics of it and crackle_tpu.CrackleArray cutouts (so this
-     script imports only the port). Kernel and plain times with CUDA
-     events at the 512^3 slice shapes, once the children have ended;
+     statistics of it and cutouts of the decoded volumes. Kernel,
+     plain and library-call times with CUDA events at the 512^3 slice
+     shapes, once the children have ended;
   4. the flat main path: upload_stream of the 512^3 volume and
      decode_window(0, 512, check_crcs=True), labels bit-equal to the
      host decoder;
@@ -26,21 +28,31 @@ Phases, one line each (phases 8 to 11 several):
   8. launch counts of the flat path; steady-state time per volume of
      each volume, the time of each stage, and the card's busy share
      over three 512^3 decodes (torch.profiler);
-  9. the pins path: the 512^3 pins stream and the 256^2 x 128 pins
+  9. the compact-cancel path (replay.CANCEL_COMPACT): upload_stream and
+     decode_window(0, 512, check_crcs=True) of the 512^3 volume against
+     the oracle, its launch counts, steady times beside the default
+     path's, and its stage times against replay_positions';
+ 10. the pins path: the 512^3 pins stream and the 256^2 x 128 pins
      volume uploaded and decoded (whole and a window) against the
      oracle, its launch counts, steady times and stage times, and
      ccl_min + plant against ccl_paint twice on the same VCG;
- 10. analytics: voxel_counts, centroids and bounding_boxes of the flat
+ 11. analytics: voxel_counts, centroids and bounding_boxes of the flat
      512^3 stream against the numpy oracle (counts and boxes equal,
      centroids within rtol 1e-12), their wall times, launch counts and
      the slice_stats time per 256-slice window;
- 11. CrackleDeviceArray cutouts of the 512^3, u64 and pins 512^3
-     streams against CrackleArray's, and check_crcs().
+ 12. CrackleDeviceArray cutouts of the 512^3, u64 and pins 512^3
+     streams against the same cutouts of the decoded volumes, and
+     check_crcs().
 
 Any failure raises and exits non-zero; without a CUDA device the
-script exits 2 and prints no result. The last three lines are the
-card's name and power limit, the kernels' JSON and
-{"ok": true, "device": {...}}.
+script exits 2 and prints no result, and it imports nothing of JAX or
+of crackle_tpu (it fails if any such module is loaded, here or in the
+oracle). The last three lines are the card's name and power limit, the
+kernels' JSON (each kernel's launches on its path, its largest
+difference from its plain version, its time, the plain version's, the
+least time the card could take for its bytes or operations, and a
+library call's time where one PyTorch call computes the same function)
+and {"ok": true, "device": {...}}.
 """
 import json
 import os
@@ -65,12 +77,14 @@ VOLU64 = os.path.join(DATA, "watershed_u64_256x256x128.ckl")
 VOLMKV = os.path.join(DATA, "connectomics_v2_mkv5_256x256x128.ckl")
 VOLPINS = os.path.join(DATA, "connectomics_v2_pins_256x256x128.ckl")
 
-# CrackleDeviceArray cutouts held against CrackleArray's of the flat
-# stream, as the text inside np.s_[...]; the pins 512^3 stream holds the
-# same volume as the flat one (phase 9 checks all of it), and the host
-# decodes the flat one far faster
+# CrackleDeviceArray cutouts held against the same cutouts of the
+# oracle's decoded volume, as the text inside np.s_[...], in forms where
+# numpy's indexing and CrackleArray's agree (CrackleArray binds an
+# Ellipsis differently; tests/test_torch_host.py holds that case); the
+# pins 512^3 stream holds the same volume as the flat one (phase 10
+# checks all of it)
 CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
-           ("512^3", VOL512, "..., 5"),
+           ("512^3", VOL512, ":, :, 5"),
            ("512^3", VOL512, "7"),
            ("u64", VOLU64, "30:200, 0:256, 17:90"),
            ("pins 512^3", VOL512, "0:512, 100:101, 300:420")]
@@ -81,17 +95,17 @@ CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
 #              (sz, sy*sx)
 #   pins:      [ckl, out]: out receives compress(volume, allow_pins=True)
 #   stats:     [ckl, npz]: numpy label statistics of the volume
-#   cutouts:   [ckl, key, npy]: CrackleArray(ckl)[np.s_[key]]
+#   cutouts:   [ckl, key, npy]: the decoded volume of ckl [np.s_[key]]
 # Each step's end is logged to stderr with the seconds since the start.
+# The oracle runs the port's host engine only: flat streams through the
+# native stream decoder, pins streams through the numpy loop.
 ORACLE = r"""
 import json
 import os
 import sys
 import time
 import numpy as np
-import crackle_tpu as crackle
-from crackle_tpu import native
-crackle.codec.set_engine("numpy")
+from crackle_tpu_torch import codec, native
 if not native.available():
   sys.exit("the native host decoder is missing")
 spec = json.loads(sys.argv[1])
@@ -147,7 +161,7 @@ def done(step):
 
 vols = {}
 for src, dst in spec.get("decode", []):
-  vol = crackle.decompress(read(src))
+  vol = codec.decompress(read(src))
   vols[src] = vol
   if dst:
     np.save(dst, np.ascontiguousarray(vol.transpose(2, 1, 0)).reshape(
@@ -155,8 +169,8 @@ for src, dst in spec.get("decode", []):
   done(f"decoded {os.path.basename(src)}")
 if "pins" in spec:
   src, dst = spec["pins"]
-  pins = crackle.compress(vols[src], allow_pins=True)
-  if crackle.header(pins).label_format != 2:
+  pins = codec.compress(vols[src], allow_pins=True)
+  if codec.header(pins).label_format != 2:
     sys.exit("the pins compress did not write condensed pins")
   with open(dst, "wb") as f:
     f.write(pins)
@@ -166,8 +180,11 @@ if "stats" in spec:
   np.savez(dst, **label_stats(vols[src]))
   done("label statistics")
 for src, key, dst in spec.get("cutouts", []):
-  np.save(dst, crackle.CrackleArray(read(src))[eval(f"np.s_[{key}]")])
+  np.save(dst, vols[src][eval(f"np.s_[{key}]")])
   done(f"cutout [{key}]")
+loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "crackle_tpu")]
+if loaded:
+  sys.exit(f"the oracle imported the reference: {loaded}")
 """
 
 KERNELS = [
@@ -192,11 +209,19 @@ KERNELS = [
    "crackle_tpu/kernels/ccl_pallas.py:541", "", "pins"),
   ("slice_stats", "crackle_tpu_torch/csrc/stats.cu",
    "crackle_tpu/kernels/stats_pallas.py:46", "", "analytics"),
+  ("cancel_sums", "crackle_tpu_torch/csrc/compact.cu",
+   "crackle_tpu/kernels/replay_big.py:281", "", "compact"),
+  ("compact_closes", "crackle_tpu_torch/csrc/compact.cu",
+   "crackle_tpu/kernels/replay_big.py:349", "", "compact"),
+  ("replay_positions_compact", "crackle_tpu_torch/csrc/compact.cu",
+   "crackle_tpu/kernels/replay_big.py:592", "", "compact"),
 ]
 
 # the kernels each path must launch
 PATHS = {
   "flat": ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"),
+  "compact": ("replay_keys", "cancel_sums", "compact_closes",
+              "replay_positions_compact", "paint_vcg", "ccl_paint"),
   "pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min",
            "plant"),
   "analytics": ("replay_keys", "replay_positions", "paint_vcg",
@@ -328,6 +353,23 @@ def compare_kernels(binary, z1, dev, tag, errs):
                     torch.sort(ids, 1).values, torch.sort(idsp, 1).values)
   errs["replay_positions"] = max(errs["replay_positions"], e)
 
+  dense = replay.cancel_sums(skp)
+  densep = replay.cancel_sums_plain(skp)
+  errs["cancel_sums"] = max(errs["cancel_sums"], require_equal(
+    f"{tag} dense close records", dense, densep))
+  ccap = replay.close_cap(skp.shape[1], t["nodes"].shape[1])
+  tables = replay.compact_closes(densep, ccap)
+  tablesp = replay.compact_closes_plain(densep, ccap)
+  errs["compact_closes"] = max(errs["compact_closes"], require_equal(
+    f"{tag} compact tables", tables, tablesp))
+  idc = replay.replay_positions_compact(cp, tablesp, t["nodes"], sx, sy)
+  idcp = replay.replay_positions_compact_plain(cp, tablesp, t["nodes"], sx,
+                                               sy)
+  errs["replay_positions_compact"] = max(
+    errs["replay_positions_compact"],
+    require_equal(f"{tag} compact edge ids", idc, idcp))
+  require_equal(f"{tag} compact edge ids vs replay_positions'", idc, ids)
+
   v = replay.paint_vcg(idsp, sx, sy, perm)
   vp = replay.paint_vcg_plain(idsp, sx, sy, perm)
   errs["paint_vcg"] = max(errs["paint_vcg"],
@@ -369,7 +411,67 @@ def compare_kernels(binary, z1, dev, tag, errs):
   errs["slice_stats"] = max(errs["slice_stats"], require_equal(
     f"{tag} slice_stats", stats.slice_stats(ccp, sx, sy, cap_s),
     stats.slice_stats_plain(ccp, sx, sy, cap_s)))
-  return t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s
+  return (t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
+          tablesp)
+
+
+def check_no_reference():
+  loaded = [m for m in sys.modules if m.split(".")[0] in ("jax",
+                                                          "crackle_tpu")]
+  if loaded:
+    raise AssertionError(f"the reference was imported: {loaded}")
+
+
+# The card's published peaks (H100 SXM data sheet): device memory, and
+# the 32-bit rate outside the tensor cores, against which the kernels'
+# integer operations are counted
+MEM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+
+# integer operations per element (codepoint, edge id or pixel) of each
+# kernel, a floor counted from its source
+OPS_PER = {"replay_keys": 40, "replay_positions": 30, "paint_vcg": 15,
+           "ccl_paint": 20, "ccl_min": 20, "plant": 30, "slice_stats": 10,
+           "cancel_sums": 30, "compact_closes": 3,
+           "replay_positions_compact": 25}
+
+
+def kernel_bounds(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
+                  tablesp):
+  """name -> (bytes, ops, bound ms, "bytes" or "operations") on the
+  timed inputs: each input read once and each output written once, the
+  larger of bytes over the memory rate and operations over the 32-bit
+  rate. Where the work depends on the data (the close records a
+  compaction moves), only what these inputs need is counted."""
+  def nb(*ts):
+    return sum(x.numel() * x.element_size() for x in ts)
+
+  B, CAP = skp.shape
+  npx = vp.numel()
+  K = t["T"].shape[1]
+  closes = int((densep[0] >= 0).sum())
+  kept = int((tablesp[0] < CAP).sum())
+  io = {
+    "replay_keys": (nb(t["packed"], t["nbytes"], t["n_chains"])
+                    + B * CAP * (8 + 4), B * CAP),
+    "replay_positions": (nb(skp, cp, t["nodes"], idsp), B * CAP),
+    "paint_vcg": (nb(idsp, vp), B * CAP + npx),
+    "ccl_paint": (nb(vp, t["T"]) + npx * 4 * (1 + K) + B * 4, npx),
+    "ccl_min": (nb(vp) + 2 * npx * 4, npx),
+    "plant": (nb(Lp, roots, t["T"]) + npx * 4 * (1 + K), npx),
+    "slice_stats": (nb(ccp) + B * cap_s * 8 * 8, npx),
+    "cancel_sums": (nb(skp, densep), B * CAP),
+    "compact_closes": (B * CAP * 4 + closes * 12 + nb(tablesp), B * CAP),
+    "replay_positions_compact": (nb(cp, t["nodes"], tablesp[0], idsp)
+                                 + kept * 8, B * CAP),
+  }
+  out = {}
+  for name, (nbytes, elems) in io.items():
+    ops = OPS_PER[name] * elems
+    tb, to = nbytes / MEM_BYTES_PER_S, ops / OPS_PER_S
+    out[name] = (nbytes, ops, 1e3 * max(tb, to),
+                 "bytes" if tb >= to else "operations")
+  return out
 
 
 def check_path(name, launches):
@@ -403,6 +505,7 @@ def main():
   kind = torch.cuda.get_device_name(0)
   say(1, f"card: {card} | torch: {kind} | torch {torch.__version__} "
          f"cuda {torch.version.cuda}")
+  check_no_reference()
 
   with tempfile.TemporaryDirectory() as tmp:
     t_or = time.perf_counter()
@@ -438,14 +541,20 @@ def run(dev, card, kind, oracles, paths, t_or):
   replay.TILE = 64
   try:
     k, c = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-    ids = replay.replay_positions(torch.sort(k, 1).values, c, t["nodes"],
-                                  sx, sy)
+    sk = torch.sort(k, 1).values
+    ids = replay.replay_positions(sk, c, t["nodes"], sx, sy)
+    idc = replay.replay_positions_compact(c, replay.compact_closes(
+      replay.cancel_sums(sk), replay.close_cap(sk.shape[1],
+                                               t["nodes"].shape[1])),
+      t["nodes"], sx, sy)
   finally:
     replay.TILE = 1024
   require_equal("tile-64 vcg", replay.paint_vcg(ids, sx, sy, perm), want)
+  require_equal("tile-64 compact edge ids", idc, ids)
   say(3, f"kernels bit-equal to their plain versions on 512^3[:32], "
-         f"256^2x128, u64[:32], pins 256^2x128 and at tile 64, and "
-         f"ccl_min -> roots_from_tgt -> plant equal to ccl_paint on each: "
+         f"256^2x128, u64[:32], pins 256^2x128 and at tile 64, "
+         f"ccl_min -> roots_from_tgt -> plant equal to ccl_paint and "
+         f"replay_positions_compact equal to replay_positions on each: "
          f"max_abs_err {errs} ({time.perf_counter() - t0:.1f} s)")
 
   for proc in oracles:
@@ -455,9 +564,12 @@ def run(dev, card, kind, oracles, paths, t_or):
   say(3, f"host oracle done in {t_or:.1f} s (two child processes: five "
          "decodes, the 512^3 pins compress, label statistics, cutouts)")
 
-  # kernel vs plain times at the 512^3 slice shapes (first 32 slices)
-  t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s = sub
+  # kernel, plain and library-call times at the 512^3 slice shapes
+  # (first 32 slices), and each kernel's bound on the same inputs
+  (t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
+   tablesp) = sub
   Tt = t["T"]
+  ccap = tablesp.shape[2]
   args = {
     "replay_keys": (lambda: replay.replay_keys(
       t["packed"], t["nbytes"], t["n_chains"]), lambda: replay.
@@ -474,11 +586,33 @@ def run(dev, card, kind, oracles, paths, t_or):
               lambda: ccl.plant_plain(Lp, roots, Tt)),
     "slice_stats": (lambda: stats.slice_stats(ccp, sx, sy, cap_s),
                     lambda: stats.slice_stats_plain(ccp, sx, sy, cap_s)),
+    "cancel_sums": (lambda: replay.cancel_sums(skp),
+                    lambda: replay.cancel_sums_plain(skp)),
+    "compact_closes": (lambda: replay.compact_closes(densep, ccap),
+                       lambda: replay.compact_closes_plain(densep, ccap)),
+    "replay_positions_compact": (lambda: replay.replay_positions_compact(
+      cp, tablesp, t["nodes"], sx, sy),
+      lambda: replay.replay_positions_compact_plain(
+        cp, tablesp, t["nodes"], sx, sy)),
   }
   times = {}
   for name, (kern, plain) in args.items():
     times[name] = (cuda_ms(kern, 10), cuda_ms(plain, 2))
-  del sub, args, t, skp, cp, idsp, vp, Lp, roots, ccp
+  library = {name: None for name in args}
+  # the one PyTorch call that computes compact_closes: a scatter of the
+  # stacked records by rank into tables set empty (pos CAP, sums 0)
+  dest = densep[0].to(torch.int64)
+  tgt = torch.where((dest >= 0) & (dest < ccap), dest, ccap).expand(
+    3, *dest.shape).contiguous()
+  empty = torch.zeros((3, dest.shape[0], ccap + 1), dtype=torch.int32,
+                      device=dev)
+  empty[0] = dest.shape[1]
+  library["compact_closes"] = cuda_ms(
+    lambda: empty.scatter_(2, tgt, densep[1:]), 10)
+  bounds = kernel_bounds(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s,
+                         densep, tablesp)
+  del sub, args, t, skp, cp, idsp, vp, Lp, roots, ccp, densep, tablesp
+  del dest, tgt, empty
 
   launches = {}
   # 4: the flat main path
@@ -557,12 +691,48 @@ def run(dev, card, kind, oracles, paths, t_or):
     f"{k} {v:.3f}" for k, v in stages.items())
       + f"; sum {sum(stages.values()):.3f}")
   for name, (km, pm) in times.items():
-    say(8, f"{name}: kernel {km:.4f} ms, plain {pm:.4f} ms "
-           f"(B=32 slices of 512^3)")
+    lib = library[name]
+    nb, nops, bms, by = bounds[name]
+    say(8, f"{name}: kernel {km:.4f} ms, plain {pm:.4f} ms, library call "
+           + (f"{lib:.4f} ms" if lib is not None else "none")
+           + f", bound {bms * 1e3:.2f} us by {by} ({nb} bytes, {nops} ops; "
+             f"{100 * bms / km:.1f}% of the bound) (B=32 slices of 512^3)")
   say(8, busy_share(stream))
+
+  # 9: the compact-cancel path on the same volume
+  replay.CANCEL_COMPACT = True
+  try:
+    ct.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs = ct.upload_stream(b512, dev)
+    labels, _, _ = cs.decode_window(0, 512, check_crcs=True)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    launches["compact"] = dict(ct.LAUNCHES)
+    require_labels("compact 512^3", labels, want)
+    del labels
+    say(9, f"compact-cancel path: upload_stream + first decode_window(0, "
+           f"512, check_crcs=True) {t_dec * 1e3:.3f} ms, labels bit-equal "
+           f"to the host decoder")
+    say(9, f"compact-path launches {launches['compact']}")
+    check_path("compact", launches["compact"])
+    if launches["compact"]["replay_positions"]:
+      raise AssertionError("the compact path launched replay_positions")
+    steady(9, "compact 512^3", cs)
+  finally:
+    replay.CANCEL_COMPACT = False
+  steady(9, "default 512^3 (after the compact path)", stream)
+  ctimes = compact_stage_times(stream)
+  say(9, "512^3 compact stage ms at B=512 (CUDA events): " + ", ".join(
+    f"{k} {v:.3f}" for k, v in ctimes.items())
+      + f"; cancel_sums + compact_closes + replay_positions_compact "
+        f"{sum(v for k, v in ctimes.items() if k != 'replay_positions'):.3f}"
+        f" against replay_positions {ctimes['replay_positions']:.3f}")
+  del cs
   del small
 
-  # 9: the pins path
+  # 10: the pins path
   bp512 = read(paths["pins512"])
   ct.reset_launches()
   torch.cuda.synchronize()
@@ -582,12 +752,12 @@ def run(dev, card, kind, oracles, paths, t_or):
   lw, _, _ = ps.decode_window(100, 164)
   require_labels("pins decode_window(100, 164)", lw, want[100:164])
   del lw
-  say(9, f"512^3 pins ({len(bp512)} bytes, cap_n {ps.pins[5]}, "
+  say(10, f"512^3 pins ({len(bp512)} bytes, cap_n {ps.pins[5]}, "
          f"{ps.nbytes_device} bytes on the card): upload_stream "
          f"{t_up * 1e3:.3f} ms, first decode_window(0, 512, "
          f"check_crcs=True) {t_dec * 1e3:.3f} ms; it and "
          f"decode_window(100, 164) bit-equal to the volume")
-  say(9, f"pins-path launches {launches['pins']}")
+  say(10, f"pins-path launches {launches['pins']}")
   check_path("pins", launches["pins"])
   p256 = ct.upload_stream(bpins, dev)
   lab, _, _ = p256.decode_window(0, p256.head.sz, check_crcs=True)
@@ -595,19 +765,19 @@ def run(dev, card, kind, oracles, paths, t_or):
   lw, _, _ = p256.decode_window(40, 90, check_crcs=True)
   require_labels("pins 256^2x128 [40, 90)", lw,
                  np.load(paths["pins256"])[40:90])
-  say(9, "pins 256^2x128: decode_window(0, 128) and (40, 90) bit-equal "
+  say(10, "pins 256^2x128: decode_window(0, 128) and (40, 90) bit-equal "
          "to the host decoder")
-  steady(9, "pins 512^3", ps)
-  steady(9, "pins 256^2x128", p256)
+  steady(10, "pins 512^3", ps)
+  steady(10, "pins 256^2x128", p256)
   ptimes = pins_stage_times(ps)
-  say(9, "pins 512^3 stage ms at B=512 (CUDA events): " + ", ".join(
+  say(10, "pins 512^3 stage ms at B=512 (CUDA events): " + ", ".join(
     f"{k} {v:.3f}" for k, v in ptimes.items() if not k.startswith("v"))
       + f"; CCL and paint as ccl_min + roots_from_tgt + plant x2 "
         f"{ptimes['v2']:.3f} ms, as ccl_paint K=0 + ccl_paint K=1 "
         f"{ptimes['v1']:.3f} ms")
   del ps, p256, want
 
-  # 10: analytics of the flat 512^3 stream
+  # 11: analytics of the flat 512^3 stream
   orc = np.load(paths["stats"])
   ct.reset_launches()
   wall = {}
@@ -622,21 +792,21 @@ def run(dev, card, kind, oracles, paths, t_or):
   wall["bounding_boxes"] = time.perf_counter() - t0
   launches["analytics"] = dict(ct.LAUNCHES)
   check_analytics(orc, vc, cen, bb)
-  say(10, f"512^3 analytics of {len(orc['uniq'])} labels: voxel_counts "
+  say(11, f"512^3 analytics of {len(orc['uniq'])} labels: voxel_counts "
           f"and bounding_boxes equal to the numpy oracle, centroids within "
           f"rtol 1e-12; wall s " + ", ".join(
             f"{k} {v:.3f}" for k, v in wall.items()))
-  say(10, f"analytics-path launches {launches['analytics']}")
+  say(11, f"analytics-path launches {launches['analytics']}")
   check_path("analytics", launches["analytics"])
   cc_w, _, _ = ct.decode_window_ccl_device(b512, 0, 256, dev)
   _, cum, _ = eng._flat_label_tables(head, b512)
   cap_w = eng._next_pow2(max(int((cum[1:] - cum[:-1]).max()), 8))
   ms_w = cuda_ms(lambda: stats.slice_stats(cc_w, 512, 512, cap_w), 5)
-  say(10, f"slice_stats per 256-slice window of 512^3 (cap_n {cap_w}): "
+  say(11, f"slice_stats per 256-slice window of 512^3 (cap_n {cap_w}): "
           f"{ms_w:.4f} ms (CUDA events, mean of 5)")
   del cc_w
 
-  # 11: CrackleDeviceArray cutouts
+  # 12: CrackleDeviceArray cutouts
   arrays = {"512^3": ct.CrackleDeviceArray(b512, dev),
             "u64": ct.CrackleDeviceArray(bu64, dev),
             "pins 512^3": ct.CrackleDeviceArray(bp512, dev)}
@@ -647,20 +817,21 @@ def run(dev, card, kind, oracles, paths, t_or):
     require_labels(f"{tag}[{key}]", got, np.load(path))
   for tag, arr in arrays.items():
     arr.check_crcs()
-  say(11, "CrackleDeviceArray cutouts equal CrackleArray's (the pins "
-          "one that of the flat stream of the same volume): " + "; ".join(
+  say(12, "CrackleDeviceArray cutouts equal those of the decoded volumes "
+          "(the pins one that of the flat stream of the same volume): "
+          + "; ".join(
     f"{tag}[{key}]" for tag, _, key in CUTOUTS)
       + "; check_crcs() passed on each array")
 
-  if any(m == "jax" or m.startswith("jax.") for m in sys.modules):
-    raise AssertionError("jax was imported")
-
+  check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
     row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
            "launches": launches[path][name], "launch_path": path,
            "max_abs_err": errs[name], "ms": times[name][0],
-           "plain_ms": times[name][1], "timed_batch": 32}
+           "plain_ms": times[name][1], "bound_ms": bounds[name][2],
+           "bound_by": bounds[name][3], "library_ms": library[name],
+           "timed_batch": 32}
     if also:
       row["also_replaces"] = also
     out.append(row)
@@ -708,6 +879,26 @@ def stage_times(s):
       ids, h.sx, h.sy, s.permissible), 3),
     "ccl_paint": cuda_ms(lambda: ccl.ccl_paint(vcg, s.T), 3),
     "crc32c": cuda_ms(lambda: crc32c.crc32c_rows(cc), 3),
+  }
+
+
+def compact_stage_times(s):
+  """Device ms of the compact-cancel stages of one full-volume decode,
+  and of replay_positions, which they replace, on the same keys."""
+  h = s.head
+  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  skeys = torch.sort(keys, 1).values
+  dense = replay.cancel_sums(skeys)
+  ccap = replay.close_cap(skeys.shape[1], s.nodes.shape[1])
+  tables = replay.compact_closes(dense, ccap)
+  return {
+    "cancel_sums": cuda_ms(lambda: replay.cancel_sums(skeys), 3),
+    "compact_closes": cuda_ms(lambda: replay.compact_closes(dense, ccap), 3),
+    "replay_positions_compact": cuda_ms(
+      lambda: replay.replay_positions_compact(cls, tables, s.nodes, h.sx,
+                                              h.sy), 3),
+    "replay_positions": cuda_ms(lambda: replay.replay_positions(
+      skeys, cls, s.nodes, h.sx, h.sy), 3),
   }
 
 

@@ -1,9 +1,10 @@
 """crackle_tpu_torch: the crackle decode path on a torch device.
 
 A port of crackle_tpu's device-resident decode to PyTorch, with
-hand-written CUDA kernels for Hopper (sm_90a) in csrc/. It reuses the
-reference's host layer (crackle_tpu.headers, lib, codec, ops, models,
-native), none of which imports JAX, and never imports JAX itself.
+hand-written CUDA kernels for Hopper (sm_90a) in csrc/. It carries its
+own copy of the reference's host layer (headers, lib, codec, ops,
+models, native: the numpy and native host engine) and imports nothing
+of crackle_tpu and nothing of JAX.
 
   stream = upload_stream(binary, torch.device("cuda"))  # flat or pins
   labels, cc, N = stream.decode_window(0, stream.head.sz, check_crcs=True)

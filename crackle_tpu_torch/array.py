@@ -1,16 +1,85 @@
 """A numpy-like facade over a compressed stream held on a torch device.
 
-Counterpart of crackle_tpu/array.py:503-597 (CrackleDeviceArray).
+Counterpart of crackle_tpu/array.py:503-597 (CrackleDeviceArray), with
+the port's copy of its slice helpers (array.py:432-500).
 """
 import numpy as np
 import torch
 
-from crackle_tpu import codec
-from crackle_tpu.array import reify_slices
-from crackle_tpu.ops import analytics as _host_analytics
-
+from . import codec
 from .kernels import engine as _engine
 from .ops import analytics as _analytics
+
+
+def reify_slices(slices, sx, sy, sz):
+  """Bind free slice attributes (None, Ellipsis) to this volume's
+  bounds."""
+  ndim = 3
+  minpt = (0, 0, 0)
+  maxpt = (sx, sy, sz)
+
+  integer_types = (int, np.integer)
+  floating_types = (float, np.floating)
+
+  if isinstance(slices, integer_types) or isinstance(slices, floating_types):
+    slices = [slice(int(slices), int(slices) + 1, 1)]
+  elif isinstance(slices, slice):
+    slices = [slices]
+  elif slices is Ellipsis:
+    slices = []
+
+  slices = list(slices)
+
+  for index, slc in enumerate(slices):
+    if slc is Ellipsis:
+      fill = ndim - len(slices) + 1
+      slices = (slices[:index] + (fill * [slice(None, None, None)])
+                + slices[index + 1:])
+      break
+
+  while len(slices) < ndim:
+    slices.append(slice(None, None, None))
+  while len(slices) > ndim and slices[-1] == slice(None, None, None):
+    slices.pop()
+
+  for index, slc in enumerate(slices):
+    if isinstance(slc, integer_types) or isinstance(slc, floating_types):
+      slc = int(slc)
+      if slc < 0:
+        slc += maxpt[index]
+      slices[index] = slice(int(slc), int(slc) + 1, 1)
+    elif slc == Ellipsis:
+      raise ValueError("More than one Ellipsis operator used at once.")
+    else:
+      start = 0 if slc.start is None else slc.start
+      end = maxpt[index] if slc.stop is None else slc.stop
+      step = 1 if slc.step is None else slc.step
+      if step < 0:
+        raise ValueError(f'Negative step sizes are not supported. '
+                         f'Got: {step}')
+      if start < 0:
+        start = maxpt[index] + start
+      check_bounds(start, minpt[index], maxpt[index])
+      if end < 0:
+        end = maxpt[index] + end
+      check_bounds(end, minpt[index], maxpt[index])
+      slices[index] = slice(start, end, step)
+
+  return slices
+
+
+def clamp(val, low, high):
+  return __import__('builtins').min(
+    __import__('builtins').max(val, low), high
+  )
+
+
+def check_bounds(val, low, high):
+  if val > high or val < low:
+    raise ValueError(
+      f'Value {val} cannot be outside of inclusive range {low} to {high}'
+    )
+  return val
 
 
 class CrackleDeviceArray:
@@ -31,7 +100,7 @@ class CrackleDeviceArray:
       raise ValueError(
         "stream is not eligible for device serving (the "
         "crackle_tpu_torch.engine logger records the reason); use "
-        "crackle_tpu.CrackleArray for the host path")
+        "crackle_tpu_torch.codec.decompress for the host path")
 
   @property
   def device(self) -> torch.device:
@@ -108,4 +177,4 @@ class CrackleDeviceArray:
       device=self.device)
 
   def point_cloud(self, label=None):
-    return _host_analytics.point_cloud(self.binary, label=label)
+    return _analytics.point_cloud(self.binary, label=label)

@@ -55,6 +55,16 @@ __device__ T block_scan(T v, T unit, Op op, T* warp, T* total) {
   return v;
 }
 
+// out[tid] = v[tid - 1]; thread 0 gets `carry`. `buf` is blockDim.x
+// elements of shared scratch; every thread of the block must call it.
+__device__ __forceinline__ int shift_prev(int v, int carry, int* buf) {
+  buf[threadIdx.x] = v;
+  __syncthreads();
+  int p = threadIdx.x ? buf[threadIdx.x - 1] : carry;
+  __syncthreads();
+  return p;
+}
+
 // floor(a / d) for d > 0 (C's / truncates toward zero)
 __device__ __forceinline__ long long floor_div(long long a, long long d) {
   long long q = a / d;

@@ -12,7 +12,7 @@
 // keeps one tile of blockDim codepoints per step, carries the scan
 // state across tiles in registers, and does each scatter with plain
 // atomics, where the TPU needed one-hot matmuls and sorted windows.
-#include "common.cuh"
+#include "replay.cuh"
 
 using namespace ckl;
 
@@ -20,15 +20,6 @@ namespace {
 
 __device__ __forceinline__ int diff_at(const uint8_t* pk, int i) {
   return (pk[i >> 2] >> (2 * (i & 3))) & 3;
-}
-
-// out[tid] = v[tid - 1]; thread 0 gets `carry`
-__device__ __forceinline__ int shift_prev(int v, int carry, int* buf) {
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  int p = threadIdx.x ? buf[threadIdx.x - 1] : carry;
-  __syncthreads();
-  return p;
 }
 
 // Kernel 1. Replaces replay_pallas._keys_kernel and
@@ -117,10 +108,8 @@ __global__ void replay_keys_kernel(const uint8_t* __restrict__ packed,
 // the tile seam carries the scan value, and the depth-segment end
 // reads the next key itself, so a seam fakes no boundary. Each move
 // atomically adds its +-1 at that close into a (2, CAP) H/V cancel
-// buffer. After a barrier, a forward tiled cumsum of deltas, cancels
-// and the chain base gives every move's position and its edge id:
-// V plane sy x (sx+1), then H plane (sy+1) x sx; -1 where out of range
-// (corrupt streams; the CRC gate reports them).
+// buffer. After a barrier, replay_forward (replay.cuh) turns deltas,
+// cancels and chain bases into every move's edge id.
 __global__ void replay_positions_kernel(const long long* __restrict__ skeys,
                                         const int* __restrict__ cls,
                                         const int* __restrict__ nodes,
@@ -168,49 +157,9 @@ __global__ void replay_positions_kernel(const long long* __restrict__ skeys,
   }
   __syncthreads();
 
-  // Positions add up in 64 bits: a corrupt stream's moves can sum past
-  // 2^31 (CAP * (sx + 1) at worst), and a wrapped int32 could land on an
-  // in-range edge id where the plain version masks it.
   __shared__ long long warpl[MAX_WARPS];
-  const int sxe = sx + 1;
-  const int NV = sy * sxe;
-  long long pcarry = 0;
-  for (int t0 = 0; t0 < CAP; t0 += T) {
-    const int i = t0 + threadIdx.x;
-    long long acc = 0;
-    int cps = 0, mv = 0, chain = 0, delta = 0;
-    if (i < CAP) {
-      const int c = cls[(size_t)b * CAP + i];
-      cps = c & 3;
-      mv = (c >> 2) & 1;
-      chain = c >> 3;
-      delta = mv ? (cps == 0 ? -sxe : cps == 1 ? 1 : cps == 2 ? sxe : -1) : 0;
-      acc = delta + __ldcg(&can[i]) + (long long)sxe * __ldcg(&can[CAP + i]);
-    }
-    long long tot;
-    const long long pos_after =
-        block_scan(acc, 0LL, Add(), warpl, &tot) + pcarry;
-    pcarry += tot;
-    if (i < CAP) {
-      int id = -1;
-      if (mv) {
-        const long long base =
-            (chain >= 0 && chain < CAP_CH) ? nodes[(size_t)b * CAP_CH + chain] : 0;
-        const long long pb = pos_after + base - delta;
-        const long long py = floor_div(pb, sxe);
-        const long long px = pb - py * sxe;
-        const long long ey = cps == 0 ? py - 1 : py;
-        const long long ex = cps == 3 ? px - 1 : px;
-        if (cps == 1 || cps == 3) {
-          if (ey >= 0 && ey <= sy && ex >= 0 && ex < sx)
-            id = NV + (int)ey * sx + (int)ex;
-        } else if (ey >= 0 && ey < sy && ex >= 0 && ex < sxe) {
-          id = (int)ey * sxe + (int)ex;
-        }
-      }
-      ids[(size_t)b * CAP + i] = id;
-    }
-  }
+  replay_forward(cls + (size_t)b * CAP, nodes + (size_t)b * CAP_CH, can,
+                 ids + (size_t)b * CAP, CAP, CAP_CH, sx, sy, warpl);
 }
 
 // Kernel 3. Replaces replay_pallas._paint_vcg_kernel and

@@ -29,7 +29,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launches(); each wrapper
 # adds one where it launches its kernel and nowhere else
 LAUNCHES = {"replay_keys": 0, "replay_positions": 0, "paint_vcg": 0,
-            "ccl_paint": 0, "ccl_min": 0, "plant": 0, "slice_stats": 0}
+            "ccl_paint": 0, "ccl_min": 0, "plant": 0, "slice_stats": 0,
+            "cancel_sums": 0, "compact_closes": 0,
+            "replay_positions_compact": 0}
 
 # wall seconds the last build took (0.0 when it was found built)
 build_seconds = 0.0
@@ -52,6 +54,14 @@ _SIGNATURES = {
   "plant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
   # cc, out, B, sx, sy, cap_n, stream
   "slice_stats_launch": [_P, _P, _I, _I, _I, _I, _P],
+  # skeys, dense, B, CAP, tile, stream
+  "cancel_sums_launch": [_P, _P, _I, _I, _I, _P],
+  # dense, tables, B, CAP, CCAP, stream
+  "compact_closes_launch": [_P, _P, _I, _I, _I, _P],
+  # cls, tables, nodes, cancel, ids, B, CAP, CCAP, CAP_CH, sx, sy, tile,
+  # stream
+  "replay_positions_compact_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                      _I, _I, _I, _P],
 }
 
 

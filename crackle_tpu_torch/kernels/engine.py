@@ -1,8 +1,8 @@
 """Host glue for the torch decode engine.
 
 Counterpart of crackle_tpu/kernels/engine.py for flat and
-condensed-pins streams: parses the container sections with the
-reference's host layer (which needs no JAX), pads the per-slice crack
+condensed-pins streams: parses the container sections with the port's
+host layer (its copy of the reference's), pads the per-slice crack
 streams and pin tables into fixed-shape tensors, parks them on a torch
 device as a DeviceStream, and decodes windows there with the kernels of
 this package.
@@ -15,12 +15,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from crackle_tpu import codec as _codec
-from crackle_tpu.headers import CrackFormat, FormatError, LabelFormat
-from crackle_tpu.lib import compute_dtype, ctoi
-from crackle_tpu.ops import crackcode as _cc
-from crackle_tpu.ops import labels as _labels_ops
-
+from .. import codec as _codec
+from ..headers import CrackFormat, FormatError, LabelFormat
+from ..lib import compute_dtype, ctoi
+from ..models import markov as _markov
+from ..ops import crackcode as _cc
+from ..ops import labels as _labels_ops
 from . import ccl as _ccl
 from . import crc32c as _crc
 from . import decode as _dec
@@ -62,7 +62,6 @@ def _prep_one(code: bytes, head, model):
   nodes = _cc.read_boc_index(code, head.sx, head.sy)
   if model is None:
     return code[index_size:], nodes
-  from crackle_tpu.models import markov as _markov
   cps = _markov.decode_markov(
     code[index_size:], model, head.markov_model_order).astype(np.int64)
   diffs = cps.copy()

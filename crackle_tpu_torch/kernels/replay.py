@@ -10,6 +10,14 @@ first two (csrc/replay.cu):
   replay_positions  sorted keys + cls -> masked edge ids
   paint_vcg         edge ids -> VCG (B, sy, sx) int32
 
+With CANCEL_COMPACT, three kernels of csrc/compact.cu take the place of
+replay_positions, giving the same edge ids element by element (the
+reference's compact-cancel path, replay_big.py:878-980):
+
+  cancel_sums               sorted keys -> dense close records
+  compact_closes            dense records -> compact close tables
+  replay_positions_compact  cls + tables -> masked edge ids
+
 Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors. The plain versions follow
 decode._decode_vcg_batch, with scatter_add_/scatter_ where JAX used
@@ -17,6 +25,8 @@ one-hot matmuls, and walk the stream in tiles of TILE codepoints with
 the same carries as the kernels, so shrinking TILE exercises the
 carries on small streams.
 """
+import os
+
 import torch
 
 from . import _build
@@ -28,6 +38,11 @@ TILE = 1024
 INF = torch.iinfo(torch.int64).max
 
 UP, RIGHT, DOWN, LEFT = 0, 1, 2, 3
+
+# the compact-cancel path in place of replay_positions; read from the
+# variable that selects it in the reference (replay_big.CANCEL_COMPACT),
+# so one setting picks the same path in both packages
+CANCEL_COMPACT = os.environ.get("CRACKLE_TPU_CANCEL_COMPACT", "0") == "1"
 
 
 def _check(name, t, dtype, ndim):
@@ -199,26 +214,15 @@ def _next_close(skeys, CAP):
   return torch.where(nc < 0, CAP, nc)
 
 
-def replay_positions_plain(skeys, cls, nodes, sx: int, sy: int):
-  """Plain version of the replay_positions kernel. Returns edge ids
-  (B, CAP) int32: V plane sy x (sx+1) first, then H plane (sy+1) x sx;
-  -1 where there is no edge."""
-  B, CAP = skeys.shape
-  dev = skeys.device
+def _replay_forward_plain(cancel, cls, nodes, sx: int, sy: int):
+  """The forward half of both position replays: cancel (B, >= 2 * CAP)
+  holds the H cancels at [0, CAP) and the V cancels at [CAP, 2 * CAP)
+  by stream position. Returns edge ids (B, CAP) int32: V plane
+  sy x (sx+1) first, then H plane (sy+1) x sx; -1 where there is no
+  edge."""
+  CAP = cls.shape[1]
   sxe = sx + 1
   NV = sy * sxe
-  inf = skeys == INF
-  cps_s = skeys & 3
-  close = (((skeys >> 2) & 1) > 0) & ~inf
-  nc = _next_close(skeys, CAP)
-
-  ok = ~inf & ~close & (nc < CAP)
-  isV = (cps_s == UP) | (cps_s == DOWN)
-  w = torch.where((cps_s == LEFT) | (cps_s == UP), 1, -1)
-  bins = torch.where(ok, isV.to(torch.int64) * CAP + nc, 2 * CAP)
-  cancel = torch.zeros((B, 2 * CAP + 1), dtype=torch.int64, device=dev)
-  cancel.scatter_add_(1, bins, torch.where(ok, w, 0))
-
   c = cls.to(torch.int64)
   cps = c & 3
   mv = ((c >> 2) & 1) > 0
@@ -244,6 +248,25 @@ def replay_positions_plain(skeys, cls, nodes, sx: int, sy: int):
   okV = ~isH & (ey >= 0) & (ey < sy) & (ex >= 0) & (ex < sxe)
   ids = torch.where(isH, NV + ey * sx + ex, ey * sxe + ex)
   return torch.where(mv & (okH | okV), ids, -1).to(torch.int32)
+
+
+def replay_positions_plain(skeys, cls, nodes, sx: int, sy: int):
+  """Plain version of the replay_positions kernel: each move's +-1 at
+  its next close, then the forward replay."""
+  B, CAP = skeys.shape
+  inf = skeys == INF
+  cps_s = skeys & 3
+  close = (((skeys >> 2) & 1) > 0) & ~inf
+  nc = _next_close(skeys, CAP)
+
+  ok = ~inf & ~close & (nc < CAP)
+  isV = (cps_s == UP) | (cps_s == DOWN)
+  w = torch.where((cps_s == LEFT) | (cps_s == UP), 1, -1)
+  bins = torch.where(ok, isV.to(torch.int64) * CAP + nc, 2 * CAP)
+  cancel = torch.zeros((B, 2 * CAP + 1), dtype=torch.int64,
+                       device=skeys.device)
+  cancel.scatter_add_(1, bins, torch.where(ok, w, 0))
+  return _replay_forward_plain(cancel, cls, nodes, sx, sy)
 
 
 def replay_positions(skeys, cls, nodes, sx: int, sy: int):
@@ -272,6 +295,173 @@ def replay_positions(skeys, cls, nodes, sx: int, sy: int):
       _tile(CAP), torch.cuda.current_stream(skeys.device).cuda_stream)
     _build.check("replay_positions", err)
     _build.LAUNCHES["replay_positions"] += 1
+  return ids
+
+
+# ---------------------------------------------------------------------------
+# the compact-cancel path: per-close run sums in place of per-move cancels
+# ---------------------------------------------------------------------------
+
+def close_cap(CAP: int, CAP_CH: int) -> int:
+  """Entries of a slice's compact close table: the reference's bound
+  (replay_big._close_rows) on the closes of a well-formed stream,
+  (CAP + 2 * CAP_CH) / 4 + 1, in rows of 128 rounded to a multiple of
+  4 rows."""
+  rows = -(-((CAP + 2 * CAP_CH) // 4 + 1) // 128)
+  return 128 * (-(-rows // 4) * 4)
+
+
+def cancel_sums_plain(skeys):
+  """Plain version of the cancel_sums kernel. Returns (4, B, CAP) int32:
+  dest (close rank, -1 elsewhere), pos (key bits & (CAP - 1)), sumH and
+  sumV (the close's run sums, 0 elsewhere), per sorted slot."""
+  B, CAP = skeys.shape
+  dev = skeys.device
+  T = _tile(CAP)
+  logcap = CAP.bit_length() - 1
+  none = torch.iinfo(torch.int64).min
+  inf = skeys == INF
+  close = (((skeys >> 2) & 1) > 0) & ~inf
+  body = skeys >> 3
+  depth = body >> logcap
+  cps = skeys & 3
+  move = ~inf & ~close
+  dh = torch.where(move & (cps == RIGHT), -1,
+                   torch.where(move & (cps == LEFT), 1, 0))
+  dv = torch.where(move & (cps == DOWN), -1,
+                   torch.where(move & (cps == UP), 1, 0))
+  first = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                     depth[:, 1:] != depth[:, :-1]], 1)
+
+  def zeros():
+    return torch.zeros(B, dtype=torch.int64, device=dev)
+
+  cumh_c, cumv_c, lah_c, lav_c, rank_c = (zeros() for _ in range(5))
+  out = torch.empty((4, B, CAP), dtype=torch.int32, device=dev)
+  out[1] = (body & (CAP - 1)).to(torch.int32)
+  for t0 in range(0, CAP, T):
+    sl = slice(t0, t0 + T)
+    fs, cl = first[:, sl], close[:, sl]
+    idx = torch.arange(fs.shape[1], device=dev)[None, :]
+
+    def last_anchor(d, cum_c, la_c):
+      cum = torch.cumsum(d, 1) + cum_c[:, None]
+      anchor = torch.where(fs, cum - d, torch.where(cl, cum, none))
+      k = torch.cummax(torch.where(anchor != none, idx, -1), 1).values
+      la = torch.where(k >= 0, torch.gather(anchor, 1, k.clamp(min=0)),
+                       la_c[:, None])
+      run = torch.where(cl & ~fs, cum - _shift_in(la, la_c), 0)
+      return cum, la, run
+
+    cumh, lah, runh = last_anchor(dh[:, sl], cumh_c, lah_c)
+    cumv, lav, runv = last_anchor(dv[:, sl], cumv_c, lav_c)
+    rank = torch.cumsum(cl.to(torch.int64), 1) + rank_c[:, None]
+    out[0, :, sl] = torch.where(cl, rank - 1, -1).to(torch.int32)
+    out[2, :, sl] = runh.to(torch.int32)
+    out[3, :, sl] = runv.to(torch.int32)
+    cumh_c, cumv_c = cumh[:, -1], cumv[:, -1]
+    lah_c, lav_c, rank_c = lah[:, -1], lav[:, -1], rank[:, -1]
+  return out
+
+
+def cancel_sums(skeys):
+  """Kernel h: sorted keys (B, CAP) int64 -> dense close records (4, B,
+  CAP) int32 (dest, pos, sumH, sumV; see cancel_sums_plain)."""
+  _check("cancel_sums", skeys, torch.int64, 2)
+  B, CAP = skeys.shape
+  if CAP & (CAP - 1):
+    raise ValueError(f"cancel_sums: CAP {CAP} is not a power of two")
+  if skeys.device.type != "cuda":
+    return cancel_sums_plain(skeys)
+  dense = torch.empty((4, B, CAP), dtype=torch.int32, device=skeys.device)
+  if B:
+    lib = _build.library()
+    err = lib.cancel_sums_launch(
+      skeys.data_ptr(), dense.data_ptr(), B, CAP, _tile(CAP),
+      torch.cuda.current_stream(skeys.device).cuda_stream)
+    _build.check("cancel_sums", err)
+    _build.LAUNCHES["cancel_sums"] += 1
+  return dense
+
+
+def compact_closes_plain(dense, ccap: int):
+  """Plain version of the compact_closes kernel: one scatter of the
+  stacked (pos, sumH, sumV) records by rank. Returns (3, B, ccap) int32
+  tables in rank order; empty entries have pos CAP and sums 0, and
+  ranks at or past ccap are dropped."""
+  _, B, CAP = dense.shape
+  dest = dense[0].to(torch.int64)
+  tgt = torch.where((dest >= 0) & (dest < ccap), dest, ccap)
+  out = torch.zeros((3, B, ccap + 1), dtype=torch.int32, device=dense.device)
+  out[0] = CAP
+  out.scatter_(2, tgt.expand(3, B, CAP), dense[1:])
+  return out[:, :, :ccap].contiguous()
+
+
+def compact_closes(dense, ccap: int):
+  """Kernel i: dense close records (4, B, CAP) int32 -> compact tables
+  (3, B, ccap) int32 (see compact_closes_plain)."""
+  _check("compact_closes", dense, torch.int32, 3)
+  if dense.shape[0] != 4 or ccap < 1:
+    raise ValueError("compact_closes: want (4, B, CAP) records and "
+                     "ccap >= 1")
+  if dense.device.type != "cuda":
+    return compact_closes_plain(dense, ccap)
+  _, B, CAP = dense.shape
+  tables = torch.empty((3, B, ccap), dtype=torch.int32, device=dense.device)
+  if B:
+    lib = _build.library()
+    err = lib.compact_closes_launch(
+      dense.data_ptr(), tables.data_ptr(), B, CAP, ccap,
+      torch.cuda.current_stream(dense.device).cuda_stream)
+    _build.check("compact_closes", err)
+    _build.LAUNCHES["compact_closes"] += 1
+  return tables
+
+
+def replay_positions_compact_plain(cls, tables, nodes, sx: int, sy: int):
+  """Plain version of the replay_positions_compact kernel: each table
+  entry's sums at its close position, then the forward replay."""
+  B, CAP = cls.shape
+  pos = tables[0].to(torch.int64)
+  ok = (pos >= 0) & (pos < CAP)
+  cancel = torch.zeros((B, 2 * CAP + 1), dtype=torch.int64,
+                       device=cls.device)
+  cancel.scatter_(1, torch.where(ok, pos, 2 * CAP), tables[1].to(torch.int64))
+  cancel.scatter_(1, torch.where(ok, CAP + pos, 2 * CAP),
+                  tables[2].to(torch.int64))
+  return _replay_forward_plain(cancel, cls, nodes, sx, sy)
+
+
+def replay_positions_compact(cls, tables, nodes, sx: int, sy: int):
+  """Kernel j: cls (B, CAP) int32, compact tables (3, B, CCAP) int32,
+  chain start nodes (B, CAP_CH) int32 -> edge ids (B, CAP) int32, equal
+  to replay_positions' on the same stream."""
+  _check("replay_positions_compact", cls, torch.int32, 2)
+  _check("replay_positions_compact", tables, torch.int32, 3)
+  _check("replay_positions_compact", nodes, torch.int32, 2)
+  B, CAP = cls.shape
+  if tables.shape[:2] != (3, B) or nodes.shape[0] != B:
+    raise ValueError("replay_positions_compact: shapes differ")
+  if CAP & (CAP - 1):
+    raise ValueError(
+      f"replay_positions_compact: CAP {CAP} is not a power of two")
+  if (sx + 2) * (sy + 2) >= 1 << 30:
+    raise ValueError(
+      "replay_positions_compact: slice too large for int32 ids")
+  if not _same_device("replay_positions_compact", cls, tables, nodes):
+    return replay_positions_compact_plain(cls, tables, nodes, sx, sy)
+  ids = torch.empty((B, CAP), dtype=torch.int32, device=cls.device)
+  if B:
+    cancel = torch.empty((B, 2 * CAP), dtype=torch.int32, device=cls.device)
+    lib = _build.library()
+    err = lib.replay_positions_compact_launch(
+      cls.data_ptr(), tables.data_ptr(), nodes.data_ptr(),
+      cancel.data_ptr(), ids.data_ptr(), B, CAP, tables.shape[2],
+      nodes.shape[1], sx, sy, _tile(CAP),
+      torch.cuda.current_stream(cls.device).cuda_stream)
+    _build.check("replay_positions_compact", err)
+    _build.LAUNCHES["replay_positions_compact"] += 1
   return ids
 
 

@@ -9,21 +9,21 @@ and float64.
 
 Where the reference takes its host loop (condensed-pins streams, a
 `label=` query, shapes its stats kernel does not take), the port logs
-why and runs the same host loop, built on crackle_tpu.ops.analytics.
-for_each_z (the reference's public functions would import JAX).
+why and runs the same host loop over for_each_z, the port's copy of the
+reference's (analytics.py:24-55), as is point_cloud (:329-428).
 """
 import builtins
 import logging
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 
-from crackle_tpu import codec
-from crackle_tpu.headers import LabelFormat
-from crackle_tpu.ops.analytics import for_each_z
-
+from .. import codec
+from ..headers import LabelFormat
 from ..kernels import engine as _engine
 from ..kernels import stats as _stats
+from . import labels as _labels_ops
+from .ccl import color_connectivity_graph_slice
 
 _min = builtins.min
 _max = builtins.max
@@ -31,6 +31,40 @@ _max = builtins.max
 logger = logging.getLogger("crackle_tpu_torch.analytics")
 
 _DEVICE_WINDOW = 256  # z slices per device stats batch
+
+
+def _clamp_z_range(head, z_start, z_end):
+  z_start = _max(_min(int(z_start), head.sz - 1), 0)
+  z_end = head.sz if z_end < 0 else int(z_end)
+  z_end = _max(_min(z_end, head.sz), 0)
+  if z_start >= z_end:
+    raise ValueError(f"crackle: Invalid range: {z_start} - {z_end}")
+  return z_start, z_end
+
+
+def for_each_z(binary: bytes, z_start: int = -1, z_end: int = -1):
+  """Yield (vcg, ccl, N, label_map, z) per slice in the window
+  (for_each_z_parallel parity; slices stream sequentially on host,
+  in parallel on device)."""
+  head = codec.header(binary)
+  z_start, z_end = _clamp_z_range(head, z_start, z_end)
+  if head.sx * head.sy == 0:
+    return
+
+  model = codec.decode_markov_model(head, binary)
+  codes = codec.crack_codes(binary)
+  lb = bytes(codec.raw_labels(binary))
+
+  for z in range(z_start, z_end):
+    vcg = codec.slice_crack_code_to_vcg(codes[z], head, model)
+    ccl, N = color_connectivity_graph_slice(vcg, head.sx, head.sy)
+    if head.label_format == LabelFormat.FLAT:
+      label_map = _labels_ops.decode_flat(head, lb, z, z + 1, head.dtype)
+    else:
+      label_map = _labels_ops.decode_condensed_pins_label_map(
+        head, lb, ccl, N, z, z + 1, head.dtype
+      )
+    yield vcg, ccl, N, label_map, z
 
 
 def _host_loop(fn: str, reason: str):
@@ -248,3 +282,105 @@ def bounding_boxes(binary: bytes, label: Optional[int] = None,
   if label is not None:
     return out[label]
   return out
+
+
+def point_cloud(binary: bytes, label=None, parallel: int = 0,
+                z_start: int = -1, z_end: int = -1,
+                skip_background: bool = True):
+  """Surface point clouds per label without full decompression
+  (operations.hpp:185-319). A surface point is a voxel of the label
+  adjacent to an impassable crack edge or the image border.
+
+  Note: unlike the reference's Moore-neighbor contour walk, points are
+  emitted uniquely (the reference may duplicate walk start points)."""
+  scalar_input = False
+  if isinstance(label, (int, np.integer)):
+    scalar_input = True
+    label = [int(label)]
+
+  head = codec.header(binary)
+  opt_z_start = z_start == -1
+  opt_z_end = z_end == -1
+
+  if isinstance(label, (list, tuple)):
+    if z_start == -1:
+      z_start = head.sz
+    if z_end == -1:
+      z_end = -1
+    for lbl in label:
+      if not codec.contains(binary, lbl):
+        raise ValueError(f"Label {lbl} not contained in image.")
+      elif opt_z_start or opt_z_end:
+        zs, ze = codec.z_range_for_label(binary, lbl)
+        if opt_z_start:
+          z_start = _min(z_start, zs)
+        if opt_z_end:
+          z_end = _max(z_end, ze)
+        if z_start == 0 and z_end == head.sz:
+          break
+
+  if z_start == -1:
+    z_start = 0
+  if z_end == -1:
+    z_end = head.sz
+
+  selective = label is not None
+  label_set = set(label) if selective else None
+
+  sx, sy = head.sx, head.sy
+  all_pts: List[np.ndarray] = []
+  all_lbls: List[np.ndarray] = []
+
+  for vcg, ccl, N, label_map, z in for_each_z(binary, z_start, z_end):
+    v = vcg.reshape(sy, sx)
+    boundary = (v & 0b1111) != 0b1111
+    boundary[0, :] = True
+    boundary[-1, :] = True
+    boundary[:, 0] = True
+    boundary[:, -1] = True
+    bidx = np.flatnonzero(boundary.ravel())
+    if len(bidx) == 0:
+      continue
+    lbls = np.asarray(label_map)[ccl[bidx]]
+    if skip_background or selective:
+      if selective:
+        keep = np.isin(lbls, np.asarray(sorted(label_set),
+                                        dtype=lbls.dtype))
+        if skip_background:
+          # the background skip applies even with an explicit label
+          # list (operations.hpp:236 applies it unconditionally)
+          keep &= lbls != 0
+      else:
+        keep = lbls != 0
+      bidx, lbls = bidx[keep], lbls[keep]
+      if len(bidx) == 0:
+        continue
+    pts = np.empty((len(bidx), 3), np.uint16)
+    pts[:, 0] = bidx % sx
+    pts[:, 1] = bidx // sx
+    pts[:, 2] = z
+    all_pts.append(pts)
+    all_lbls.append(lbls)
+
+  ptc: Dict[int, np.ndarray] = {}
+  if all_pts:
+    # one global sort-based group-by instead of a per-label mask per
+    # slice (points within a label stay in slice/raster order because
+    # the sort is stable)
+    pts = np.concatenate(all_pts)
+    lbls = np.concatenate(all_lbls)
+    order = np.argsort(lbls, kind='stable')
+    pts, lbls = pts[order], lbls[order]
+    uniq, starts = np.unique(lbls, return_index=True)
+    bounds = np.append(starts, len(lbls))
+    ptc = {
+      int(u): np.ascontiguousarray(pts[bounds[i]:bounds[i + 1]])
+      for i, u in enumerate(uniq)
+    }
+  if len(ptc) == 0:
+    if label:
+      return np.zeros([0, 3], dtype=np.uint16, order="C")
+    return {}
+  if scalar_input:
+    return ptc[label[0]]
+  return ptc

@@ -1,0 +1,173 @@
+"""The compact-cancel replay (cancel_sums -> compact_closes ->
+replay_positions_compact) against the reference's compact path in
+interpret mode, and against the port's default replay: exact
+everywhere."""
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+import crackle_tpu as crackle
+from crackle_tpu.headers import CrackFormat
+from crackle_tpu.kernels import ccl_pallas, replay_big, replay_pallas
+from crackle_tpu.kernels import engine as jeng
+import crackle_tpu_torch as ct
+from crackle_tpu_torch.kernels import engine as teng
+from crackle_tpu_torch.kernels import replay
+
+from test_jax_decode import random_volume
+from test_torch_replay import islands_volume, spiral_volume
+
+# the volumes of test_jax_decode.test_replay_big_compact_cancel_path,
+# and one with more than 32 chains per slice
+VOLUMES = {
+  "spiral": spiral_volume,
+  "random 33x17x3": lambda: random_volume((33, 17, 3), 6, 34, 6),
+  "random 16x16x3": lambda: random_volume((16, 16, 3), 2, 33, 0),
+  "islands": islands_volume,
+}
+
+
+def _stream(name):
+  binary = crackle.compress(VOLUMES[name]())
+  return binary, crackle.header(binary)
+
+
+def _padded_inputs(binary, head):
+  """The reference's padded slice inputs, at least 256 codepoints (the
+  chunked replay's smallest CAP)."""
+  inputs = jeng.prepare_slice_inputs(binary, 0, head.sz)
+  CAP_B = max(inputs["packed"].shape[1], 64)
+  packed = np.zeros((head.sz, CAP_B), np.uint8)
+  packed[:, :inputs["packed"].shape[1]] = inputs["packed"]
+  return dict(inputs, packed=packed)
+
+
+def _port_stages(inputs):
+  t = teng.params_from_jax(inputs, device="cpu")
+  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  skeys = torch.sort(keys, 1).values
+  return t, skeys, cls
+
+
+@pytest.fixture
+def compact_reference(monkeypatch):
+  """The force_big set-up of test_jax_decode with the compact path."""
+  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+  monkeypatch.setattr(replay_pallas, "FORCE_BIG", True)
+  monkeypatch.setattr(replay_big, "CHUNK_R", 2)
+  monkeypatch.setattr(replay_big, "CANCEL_COMPACT", True)
+  jax.clear_caches()
+  yield
+  jax.clear_caches()
+
+
+@pytest.mark.parametrize("name", ["spiral", "random 33x17x3",
+                                  "random 16x16x3"])
+def test_cancel_sums_and_compaction_match_reference(compact_reference,
+                                                    name):
+  binary, head = _stream(name)
+  inputs = _padded_inputs(binary, head)
+  CAP = inputs["packed"].shape[1] * 4
+  assert replay_big.eligible(CAP, inputs["nodes"].shape[1], head.sx,
+                             head.sy)
+  stash = {}
+  replay_big.replay_vcg_i32_big(
+    *(jnp.asarray(inputs[k]) for k in ("packed", "nbytes", "nodes",
+                                       "n_chains")),
+    head.sx, head.sy, head.crack_format == CrackFormat.PERMISSIBLE,
+    stash=stash)
+  want = [np.asarray(a).reshape(head.sz, CAP) for a in stash["dense_close"]]
+
+  t, skeys, _ = _port_stages(inputs)
+  dense = replay.cancel_sums_plain(skeys).numpy()
+  closes = want[0] >= 0
+  assert closes.any()
+  np.testing.assert_array_equal(dense[0] >= 0, closes)
+  for got, ref in zip(dense, want):  # dest, pos, sumH, sumV
+    np.testing.assert_array_equal(got[closes], ref[closes])
+
+  ccap = replay.close_cap(CAP, inputs["nodes"].shape[1])
+  assert ccap == replay_big._close_rows(CAP, inputs["nodes"].shape[1]) * 128
+  tables = replay.compact_closes_plain(torch.from_numpy(dense), ccap).numpy()
+  ref_tables = [np.asarray(a).reshape(head.sz, -1)
+                for a in stash["compact_sorted"]]
+  for z in range(head.sz):
+    got = {tuple(r) for r in tables[:, z].T if r[0] < CAP}
+    ref = {tuple(r) for r in np.stack([a[z] for a in ref_tables], 1)
+           if r[0] < CAP}
+    assert got == ref and len(got) == int(closes[z].sum())
+
+
+@pytest.mark.parametrize("tile", [32, 256, 1024])
+@pytest.mark.parametrize("name", list(VOLUMES))
+def test_compact_ids_equal_replay_positions(monkeypatch, name, tile):
+  monkeypatch.setattr(replay, "TILE", tile)
+  binary, head = _stream(name)
+  inputs = teng.prepare_slice_inputs(binary, 0, head.sz)
+  if name == "islands":
+    assert inputs["nodes"].shape[1] > 32
+  t, skeys, cls = _port_stages(inputs)
+  want = replay.replay_positions_plain(skeys, cls, t["nodes"], head.sx,
+                                       head.sy)
+  dense = replay.cancel_sums_plain(skeys)
+  tables = replay.compact_closes_plain(
+    dense, replay.close_cap(skeys.shape[1], t["nodes"].shape[1]))
+  got = replay.replay_positions_compact_plain(cls, tables, t["nodes"],
+                                              head.sx, head.sy)
+  assert torch.equal(got, want)
+  # the wrappers take the plain versions for CPU tensors
+  assert torch.equal(replay.replay_positions_compact(
+    cls, replay.compact_closes(replay.cancel_sums(skeys), tables.shape[2]),
+    t["nodes"], head.sx, head.sy), want)
+
+
+@pytest.mark.parametrize("name", list(VOLUMES))
+def test_compact_path_decodes_volume(monkeypatch, name):
+  monkeypatch.setattr(replay, "CANCEL_COMPACT", True)
+  vol = VOLUMES[name]()
+  stream = ct.upload_stream(crackle.compress(vol), "cpu")
+  labels, _, _ = stream.decode_window(0, vol.shape[2], check_crcs=True)
+  sx, sy, sz = vol.shape
+  np.testing.assert_array_equal(
+    labels.numpy().reshape(sz, sy, sx).transpose(2, 1, 0), vol)
+
+
+def many_closes_inputs():
+  """One 4096-codepoint slice of 0xAA bytes (every diff 2: a run of
+  DOWN-UP terminate pairs) with a chain count past any stream's, so
+  every pair is a valid close: 2048 closes against a table of 1536
+  (CAP_CH 2). Only a corrupt stream gets here."""
+  packed = np.full((1, 1024), 0xAA, np.uint8)
+  return {"packed": packed, "nbytes": np.array([1024], np.int32),
+          "nodes": np.array([[0, 5]], np.int32),
+          "n_chains": np.array([1 << 20], np.int32)}
+
+
+def test_compaction_drops_ranks_past_the_table():
+  t = teng.params_from_jax(many_closes_inputs(), device="cpu")
+  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  dense = replay.cancel_sums(torch.sort(keys, 1).values)
+  ccap = replay.close_cap(4096, 2)
+  assert ccap == 1536 and int(dense[0].max()) + 1 == 2048
+  tables = replay.compact_closes(dense, ccap)
+  assert tables.shape == (3, 1, ccap)
+  assert bool((tables[0] < 4096).all())
+  ids = replay.replay_positions_compact(cls, tables, t["nodes"], 40, 30)
+  assert ids.shape == (1, 4096)
+
+
+def test_compact_wrappers_reject_bad_inputs():
+  keys = torch.zeros((2, 24), dtype=torch.int64)
+  with pytest.raises(ValueError):
+    replay.cancel_sums(keys)  # CAP not a power of two
+  with pytest.raises(ValueError):
+    replay.cancel_sums(keys.to(torch.int32))
+  with pytest.raises(ValueError):
+    replay.compact_closes(torch.zeros((3, 2, 16), dtype=torch.int32), 8)
+  cls = torch.zeros((2, 16), dtype=torch.int32)
+  nodes = torch.zeros((2, 2), dtype=torch.int32)
+  with pytest.raises(ValueError):
+    replay.replay_positions_compact(
+      cls, torch.zeros((3, 1, 8), dtype=torch.int32), nodes, 4, 4)

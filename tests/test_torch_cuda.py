@@ -16,6 +16,7 @@ from crackle_tpu_torch.kernels import engine as teng
 
 from test_jax_decode import CASES, random_volume
 from test_torch_ccl import labels_to_vcg, smooth_labels
+from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, spiral_volume
 
@@ -96,6 +97,69 @@ def test_corrupt_streams_do_not_fault(dev):
   torch.cuda.synchronize()
   for g, w in zip(got, _stages(t, inputs["head"], True)):
     assert torch.equal(g, w)
+
+
+def _compact_stages(t, head):
+  """The compact-cancel kernels on the card, each against its plain
+  version on the same inputs, and their edge ids against
+  replay_positions'."""
+  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  skeys = torch.sort(keys, 1).values
+  dense = replay.cancel_sums(skeys)
+  torch.cuda.synchronize()
+  _equal([dense], [replay.cancel_sums_plain(skeys.cpu())])
+  ccap = replay.close_cap(skeys.shape[1], t["nodes"].shape[1])
+  tables = replay.compact_closes(dense, ccap)
+  torch.cuda.synchronize()
+  _equal([tables], [replay.compact_closes_plain(dense.cpu(), ccap)])
+  ids = replay.replay_positions_compact(cls, tables, t["nodes"], head.sx,
+                                        head.sy)
+  torch.cuda.synchronize()
+  _equal([ids], [replay.replay_positions_compact_plain(
+    cls.cpu(), tables.cpu(), t["nodes"].cpu(), head.sx, head.sy)])
+  return ids, replay.replay_positions(skeys, cls, t["nodes"], head.sx,
+                                      head.sy)
+
+
+@pytest.mark.parametrize("tile", [32, 1024])
+def test_compact_kernels_match_plain(dev, monkeypatch, tile):
+  monkeypatch.setattr(replay, "TILE", tile)
+  for vol in _volumes():
+    inputs = teng.prepare_slice_inputs(crackle.compress(vol), 0,
+                                       vol.shape[2])
+    ids, want = _compact_stages(teng.params_from_jax(inputs, device=dev),
+                                inputs["head"])
+    _equal([ids], [want])
+
+
+def test_compact_kernels_on_corrupt_streams(dev):
+  """Random bytes, and a stream whose close count passes the compact
+  table: ranks past it are dropped, never stored out of bounds."""
+  rng = np.random.RandomState(6)
+  inputs = teng.prepare_slice_inputs(
+    crackle.compress(random_volume((40, 30, 4), 6, 9, 3)), 0, 4)
+  for _ in range(4):
+    bad = dict(inputs)
+    bad["packed"] = rng.randint(0, 256, inputs["packed"].shape,
+                                dtype=np.uint8)
+    bad["nbytes"] = np.full_like(inputs["nbytes"], bad["packed"].shape[1])
+    _compact_stages(teng.params_from_jax(bad, device=dev), inputs["head"])
+  t = teng.params_from_jax(many_closes_inputs(), device=dev)
+  keys, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  assert int(replay.cancel_sums(torch.sort(keys, 1).values)[0].max()) \
+    >= replay.close_cap(4096, 2)
+  _compact_stages(t, inputs["head"])
+
+
+def test_compact_path_decodes_on_card(dev, monkeypatch):
+  monkeypatch.setattr(replay, "CANCEL_COMPACT", True)
+  binary = crackle.compress(np.concatenate([spiral_volume()] * 2, axis=2))
+  ct.reset_launches()
+  got = ct.upload_stream(binary, dev).decode_window(0, 2, check_crcs=True)
+  assert ct.LAUNCHES["replay_positions"] == 0
+  for name in ("cancel_sums", "compact_closes", "replay_positions_compact"):
+    assert ct.LAUNCHES[name] == 1
+  _equal(got, ct.upload_stream(binary, "cpu").decode_window(0, 2))
 
 
 def test_paint_k2_matches_plain(dev):
