@@ -8,8 +8,10 @@ Phases, one line each (phases 8 to 12 several):
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
      the first 32 slices of the 512^3 bench volume, all of the 256^2 x
-     128 one and of the 256^2 x 128 pins one (plus the u64 paint and a
-     tile-seam run); ccl_min -> roots_from_tgt -> plant against
+     128 one and of the 256^2 x 128 pins one (plus the u64 paint, a
+     tile-seam run of the replay, and the CCL kernels at a 64-pixel
+     tile on the 256^2 x 128 VCG and on a 512^2 snake and checkerboard,
+     at both tiles); ccl_min -> roots_from_tgt -> plant against
      ccl_paint and the compact-cancel kernels' edge ids against
      replay_positions' on the same inputs. Meanwhile two child processes
      run the host oracle on the port's own host layer
@@ -26,8 +28,10 @@ Phases, one line each (phases 8 to 12 several):
      same way;
   7. a flipped stored CRC word must raise FormatError naming its z;
   8. launch counts of the flat path; steady-state time per volume of
-     each volume, the time of each stage, and the card's busy share
-     over three 512^3 decodes (torch.profiler);
+     each volume, the time of each stage, each CCL pass's device time
+     at B = 512 (torch.profiler, by kernel name, over one ccl_paint and
+     one ccl_min call) at the default tile and at smaller ones, and the
+     card's busy share over three 512^3 decodes (torch.profiler);
   9. the compact-cancel path (replay.CANCEL_COMPACT): upload_stream and
      decode_window(0, 512, check_crcs=True) of the 512^3 volume against
      the oracle, its launch counts, steady times beside the default
@@ -415,6 +419,42 @@ def compare_kernels(binary, z1, dev, tag, errs):
           tablesp)
 
 
+def snake_vcg(B, sy, sx):
+  """One component through every row: rows linked along x, row y to
+  row y - 1 only at its right end (y odd) or its left end (y even)."""
+  v = np.zeros((B, sy, sx), np.int32)
+  v[:, :, 1:] |= 0b0010
+  v[:, :, :-1] |= 0b0001
+  ys = np.arange(1, sy)
+  xs = np.where(ys % 2 == 1, sx - 1, 0)
+  v[:, ys, xs] |= 0b1000
+  v[:, ys - 1, xs] |= 0b0100
+  return v
+
+
+def compare_ccl_tiles(vcg, dev, tag, n_want=None):
+  """ccl_paint (K = 0 and 1) and ccl_min at ccl.TILE_PIX = 64 and at the
+  default tile against the plain versions; returns the largest
+  difference. n_want, where given, is every slice's component count."""
+  T = plain_table(np.random.RandomState(64), vcg.shape[0], 1, 1024, dev)
+  cc, N, pt = ccl.ccl_paint_plain(vcg, T)
+  if n_want is not None and N.tolist() != [n_want] * len(N):
+    raise AssertionError(f"{tag}: N {N.tolist()}, want {n_want}")
+  L, tgt = ccl.ccl_min_plain(vcg)
+  default = ccl.TILE_PIX
+  err = 0.0
+  for tile in (64, default):
+    ccl.TILE_PIX = tile
+    try:
+      got = ccl.ccl_paint(vcg, T) + ccl.ccl_paint(vcg)[:2] + ccl.ccl_min(vcg)
+    finally:
+      ccl.TILE_PIX = default
+    for name, a, b in zip(("cc", "N", "painted", "cc K=0", "N K=0", "L",
+                           "tgt"), got, (cc, N, pt, cc, N, L, tgt)):
+      err = max(err, require_equal(f"{tag} tile {tile} {name}", a, b))
+  return err
+
+
 def check_no_reference():
   loaded = [m for m in sys.modules if m.split(".")[0] in ("jax",
                                                           "crackle_tpu")]
@@ -551,8 +591,21 @@ def run(dev, card, kind, oracles, paths, t_or):
     replay.TILE = 1024
   require_equal("tile-64 vcg", replay.paint_vcg(ids, sx, sy, perm), want)
   require_equal("tile-64 compact edge ids", idc, ids)
+  # CCL tile seams: a 64-pixel tile on the 256^2 VCG; a snake through
+  # every tile (N = 1) and a checkerboard, whose VCG links nothing
+  # (N = n), at 512^2
+  for tag, v, n_want in (
+      ("256^2x128", want, None),
+      ("512^2 snake", torch.from_numpy(snake_vcg(2, 512, 512)).to(dev), 1),
+      ("512^2 checkerboard", torch.zeros((2, 512, 512), dtype=torch.int32,
+                                         device=dev), 512 * 512)):
+    e = compare_ccl_tiles(v, dev, tag, n_want)
+    errs["ccl_paint"] = max(errs["ccl_paint"], e)
+    errs["ccl_min"] = max(errs["ccl_min"], e)
   say(3, f"kernels bit-equal to their plain versions on 512^3[:32], "
-         f"256^2x128, u64[:32], pins 256^2x128 and at tile 64, "
+         f"256^2x128, u64[:32], pins 256^2x128, the replay at tile 64, "
+         f"the CCL at 64-pixel tiles and on a 512^2 snake and "
+         f"checkerboard, "
          f"ccl_min -> roots_from_tgt -> plant equal to ccl_paint and "
          f"replay_positions_compact equal to replay_positions on each: "
          f"max_abs_err {errs} ({time.perf_counter() - t0:.1f} s)")
@@ -690,6 +743,12 @@ def run(dev, card, kind, oracles, paths, t_or):
   say(8, "512^3 stage ms at B=512 (CUDA events): " + ", ".join(
     f"{k} {v:.3f}" for k, v in stages.items())
       + f"; sum {sum(stages.values()):.3f}")
+  for tile in (ccl.TILE_PIX, 4096, 2048):
+    for name, ms in ccl_pass_times(stream, tile).items():
+      say(8, f"{name} passes at B=512, tile {tile} (torch.profiler, one "
+             f"call): " + (", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+                           + f"; sum {sum(ms.values()):.3f} ms" if ms
+                           else "not measured"))
   for name, (km, pm) in times.items():
     lib = library[name]
     nb, nops, bms, by = bounds[name]
@@ -880,6 +939,44 @@ def stage_times(s):
     "ccl_paint": cuda_ms(lambda: ccl.ccl_paint(vcg, s.T), 3),
     "crc32c": cuda_ms(lambda: crc32c.crc32c_rows(cc), 3),
   }
+
+
+CCL_PASSES = ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank", "ccl_fill")
+
+
+def ccl_pass_times(s, tile):
+  """name -> {pass: device ms} of one ccl_paint (with the stream's
+  table) and one ccl_min call on the full volume's VCG at
+  ccl.TILE_PIX = tile, summed by kernel name from torch.profiler's
+  device events; None where the profiler recorded no pass."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  h = s.head
+  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  ids = replay.replay_positions(torch.sort(keys, 1).values, cls, s.nodes,
+                                h.sx, h.sy)
+  vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
+  out = {}
+  default = ccl.TILE_PIX
+  for name, fn in (("ccl_paint", lambda: ccl.ccl_paint(vcg, s.T)),
+                   ("ccl_min", lambda: ccl.ccl_min(vcg))):
+    ccl.TILE_PIX = tile
+    try:
+      fn()
+      torch.cuda.synchronize()
+      with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+      ccl.TILE_PIX = default
+    ms = {}
+    for e in prof.events():
+      hit = [k for k in CCL_PASSES if f"{k}_kernel" in e.name]
+      if e.device_type == DeviceType.CUDA and hit:
+        ms[hit[0]] = ms.get(hit[0], 0.0) + (
+          e.time_range.end - e.time_range.start) / 1e3
+    out[name] = ms or None
+  return out
 
 
 def compact_stage_times(s):

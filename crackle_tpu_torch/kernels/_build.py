@@ -46,10 +46,11 @@ _SIGNATURES = {
                               _P],
   # ids, vcg, B, CAP, sx, sy, permissible, stream
   "paint_vcg_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
-  # vcg, T, L, cc, N, painted, B, sx, sy, K, cap_n, stream
-  "ccl_paint_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-  # vcg, L, tgt, B, sx, sy, stream
-  "ccl_min_launch": [_P, _P, _P, _I, _I, _I, _P],
+  # vcg, T, L, counts, cc, N, painted, B, sx, sy, K, cap_n, tile, stream
+  "ccl_paint_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _P],
+  # vcg, L, counts, tgt, B, sx, sy, tile, stream
+  "ccl_min_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
   # L, roots, T, cc, painted, B, n, K, cap_n, stream
   "plant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
   # cc, out, B, sx, sy, cap_n, stream

@@ -3,10 +3,12 @@
 Counterpart of crackle_tpu/kernels/ccl_pallas.py: ccl_batch_traced and
 ccl_paint_traced (``ccl_paint``), and the v2 split ccl_min_traced,
 roots_from_tgt and plant_traced (``ccl_min``, ``roots_from_tgt``,
-``plant``). The kernels (csrc/ccl.cu) share a union-find with union by
-min; the plain versions below follow decode._ccl_batch: alternating
-row/column segmented-min sweeps to a fixed point, then the first-visit
-renumber, plus the table paint.
+``plant``). The CCL kernels (csrc/ccl.cu) run a union-find with union
+by min, first inside tiles of TILE_PIX consecutive raster pixels in
+shared memory, then across the tiles' seams in device memory; the plain
+versions below follow decode._ccl_batch: alternating row/column
+segmented-min sweeps to a fixed point, then the first-visit renumber,
+plus the table paint.
 """
 import torch
 
@@ -14,6 +16,11 @@ from . import _build
 
 # largest per-slice paint table (ccl_pallas.PAINT_CAP_N)
 PAINT_CAP_N = 2048
+
+# consecutive raster pixels per tile of the CCL kernels: the shared-
+# memory forest of one block; a power of two in [32, 8192]. Tests shrink
+# it to cross tile seams.
+TILE_PIX = 8192
 
 
 def _seg_min(L, blocked, dim):
@@ -92,6 +99,17 @@ def _check_vcg(name, vcg):
                      f"got {tuple(vcg.shape)} {vcg.dtype}")
 
 
+def _tiles(name, vcg):
+  """(tile, tiles per slice) of the CCL kernels for vcg."""
+  if TILE_PIX < 32 or TILE_PIX > 8192 or TILE_PIX & (TILE_PIX - 1):
+    raise ValueError(f"TILE_PIX must be a power of two in [32, 8192]: "
+                     f"{TILE_PIX}")
+  n = vcg.shape[1] * vcg.shape[2]
+  if n >= 2 ** 31:
+    raise ValueError(f"{name}: {n} pixels a slice, want fewer than 2^31")
+  return TILE_PIX, -(-n // TILE_PIX)
+
+
 def ccl_paint(vcg, T=None):
   """Kernel 4: vcg (B, sy, sx) int32 and an optional paint table T
   (B, K, cap_n) int32, K in {1, 2}, cap_n <= PAINT_CAP_N ->
@@ -117,13 +135,16 @@ def ccl_paint(vcg, T=None):
   N = torch.empty((B,), dtype=torch.int32, device=dev)
   painted = (torch.empty((B, K, n), dtype=torch.int32, device=dev)
              if K else None)
+  tile, tiles = _tiles("ccl_paint", vcg)
   if B and n:
     L = torch.empty((B, n), dtype=torch.int32, device=dev)
+    counts = torch.empty((B, tiles), dtype=torch.int32, device=dev)
     lib = _build.library()
     err = lib.ccl_paint_launch(
       vcg.data_ptr(), T.data_ptr() if K else None, L.data_ptr(),
-      cc.data_ptr(), N.data_ptr(), painted.data_ptr() if K else None,
-      B, sx, sy, K, cap_n, torch.cuda.current_stream(dev).cuda_stream)
+      counts.data_ptr(), cc.data_ptr(), N.data_ptr(),
+      painted.data_ptr() if K else None, B, sx, sy, K, cap_n, tile,
+      torch.cuda.current_stream(dev).cuda_stream)
     _build.check("ccl_paint", err)
     _build.LAUNCHES["ccl_paint"] += 1
   return cc, N, painted
@@ -147,12 +168,14 @@ def ccl_min(vcg):
   if vcg.device.type != "cuda":
     return ccl_min_plain(vcg)
   B, sy, sx = vcg.shape
+  tile, tiles = _tiles("ccl_min", vcg)
   L = torch.empty_like(vcg)
   tgt = torch.empty_like(vcg)
   if B and sx * sy:
+    counts = torch.empty((B, tiles), dtype=torch.int32, device=vcg.device)
     err = _build.library().ccl_min_launch(
-      vcg.data_ptr(), L.data_ptr(), tgt.data_ptr(), B, sx, sy,
-      torch.cuda.current_stream(vcg.device).cuda_stream)
+      vcg.data_ptr(), L.data_ptr(), counts.data_ptr(), tgt.data_ptr(), B,
+      sx, sy, tile, torch.cuda.current_stream(vcg.device).cuda_stream)
     _build.check("ccl_min", err)
     _build.LAUNCHES["ccl_min"] += 1
   return L, tgt

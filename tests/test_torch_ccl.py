@@ -35,6 +35,86 @@ def smooth_labels(B, sy, sx, n, seed, rounds=4):
   return labels
 
 
+def serpentine_vcg(B, sy, sx):
+  """One component that snakes through every row: each row is linked
+  along x, and row y to row y - 1 only at its right end (y odd) or its
+  left end (y even)."""
+  v = np.zeros((B, sy, sx), np.int32)
+  v[:, :, 1:] |= 0b0010
+  v[:, :, :-1] |= 0b0001
+  for y in range(1, sy):
+    x = sx - 1 if y % 2 else 0
+    v[:, y, x] |= 0b1000
+    v[:, y - 1, x] |= 0b0100
+  return v
+
+
+def hard_vcgs():
+  """name -> VCG of the topologies a tiled CCL finds hard: one snake
+  through every tile, a checkerboard (N = n), one row, one column, rows
+  of 100 that split across tiles, and everything connected (N = 1)."""
+  yy, xx = np.indices((18, 22))
+  return {
+    "serpentine": serpentine_vcg(2, 15, 24),
+    "checkerboard": labels_to_vcg(((yy + xx) % 2)[None]),
+    "row": labels_to_vcg(smooth_labels(2, 1, 600, 5, 31)),
+    "column": labels_to_vcg(smooth_labels(2, 600, 1, 5, 32)),
+    "sx100": labels_to_vcg(smooth_labels(2, 30, 100, 6, 33)),
+    "connected": labels_to_vcg(np.zeros((2, 20, 30), np.int32)),
+  }
+
+
+@pytest.mark.parametrize("name", sorted(hard_vcgs()))
+def test_ccl_paint_hard_topologies_match_xla(name):
+  """ccl_paint on the topologies of hard_vcgs against decode._ccl_batch,
+  with a table smaller than N where there are many components."""
+  vcg = hard_vcgs()[name]
+  B, sy, sx = vcg.shape
+  want_cc, want_N = _xla_ccl(jnp.asarray(vcg.reshape(B, -1)), sx, sy)
+  want_cc, want_N = np.asarray(want_cc), np.asarray(want_N)
+  if name == "checkerboard":
+    assert int(want_N[0]) == sx * sy
+  if name in ("serpentine", "connected"):
+    assert want_N.tolist() == [1] * B
+  cap_n = 64
+  T = np.random.RandomState(len(name)).randint(
+    1, 1 << 30, size=(B, 1, cap_n)).astype(np.int32)
+  cc, N, painted = ccl.ccl_paint(torch.from_numpy(vcg), torch.from_numpy(T))
+  np.testing.assert_array_equal(cc.numpy(), want_cc)
+  np.testing.assert_array_equal(N.numpy(), want_N)
+  want_p = np.where(want_cc < cap_n,
+                    np.take_along_axis(T[:, 0], np.minimum(want_cc, cap_n - 1),
+                                       1), 0)
+  np.testing.assert_array_equal(painted[:, 0].numpy(), want_p)
+
+
+@pytest.mark.parametrize("name", sorted(hard_vcgs()))
+def test_ccl_min_hard_topologies_match_pallas_interpret(monkeypatch, name):
+  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+  vcg = hard_vcgs()[name]
+  B, sy, sx = vcg.shape
+  want_L, want_tgt = ccl_pallas.ccl_min_traced(
+    jnp.asarray(vcg.reshape(B, -1)), sx, sy)
+  L, tgt = ccl.ccl_min(torch.from_numpy(vcg))
+  np.testing.assert_array_equal(L.numpy(), np.asarray(want_L))
+  np.testing.assert_array_equal(tgt.numpy(), np.asarray(want_tgt))
+
+
+@pytest.mark.parametrize("tile", [0, 16, 48, 16384])
+def test_tile_pix_must_be_a_power_of_two_in_range(monkeypatch, tile):
+  monkeypatch.setattr(ccl, "TILE_PIX", tile)
+  with pytest.raises(ValueError, match="TILE_PIX"):
+    ccl._tiles("ccl_paint", torch.empty((1, 8, 8), dtype=torch.int32))
+
+
+def test_tiles_cover_the_slice_and_refuse_2_31_pixels():
+  assert ccl._tiles("ccl_min", torch.empty((3, 512, 512))) == (8192, 32)
+  assert ccl._tiles("ccl_min", torch.empty((1, 30, 100))) == (8192, 1)
+  big = torch.empty((1, 1 << 16, 1 << 15), device="meta")
+  with pytest.raises(ValueError, match="2\\^31"):
+    ccl._tiles("ccl_paint", big)
+
+
 @pytest.mark.parametrize("sy,sx", [(40, 48), (41, 48), (1, 7), (9, 1),
                                    (17, 33)])
 def test_ccl_matches_xla(sy, sx):

@@ -4,6 +4,8 @@ These need a CUDA device and skip without one:
 
   python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -15,7 +17,8 @@ from crackle_tpu_torch.kernels import ccl, replay, stats
 from crackle_tpu_torch.kernels import engine as teng
 
 from test_jax_decode import CASES, random_volume
-from test_torch_ccl import labels_to_vcg, smooth_labels
+from test_torch_ccl import (hard_vcgs, labels_to_vcg, serpentine_vcg,
+                            smooth_labels)
 from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, spiral_volume
@@ -172,6 +175,45 @@ def test_paint_k2_matches_plain(dev):
   want = ccl.ccl_paint(vcg, T)
   for g, w in zip(got, want):
     assert torch.equal(g.cpu(), w.cpu())
+
+
+@functools.lru_cache(maxsize=1)
+def _ccl_cases():
+  """(vcg, cc, N, L, tgt) of the plain versions on the hard topologies,
+  random connectivity bits and smooth label slices (some wider than an
+  8192-pixel tile), and a 512^2 snake."""
+  rng = np.random.RandomState(9)
+  vcgs = list(hard_vcgs().values())
+  vcgs += [(rng.randint(0, 16, size=(3, sy, sx)) & 0b1010).astype(np.int32)
+           for sy, sx in ((37, 29), (64, 100), (1, 5000))]
+  vcgs += [labels_to_vcg(smooth_labels(3, sy, sx, 6, sx))
+           for sy, sx in ((40, 70), (96, 5000), (130, 130))]
+  vcgs.append(serpentine_vcg(1, 512, 512))
+  cases = []
+  for vcg in map(torch.from_numpy, vcgs):
+    cc, N, _ = ccl.ccl_paint_plain(vcg)
+    cases.append((vcg, cc, N) + ccl.ccl_min_plain(vcg))
+  return cases
+
+
+@pytest.mark.parametrize("tile", [32, 64, 4096, 8192])
+def test_tiled_ccl_matches_plain(dev, monkeypatch, tile):
+  """ccl_paint at K = 0, 1, 2 and ccl_min bit-equal to their plain
+  versions, with tile seams inside rows, across rows and past sx."""
+  monkeypatch.setattr(ccl, "TILE_PIX", tile)
+  rng = np.random.RandomState(tile)
+  for vcg, cc, N, L, tgt in _ccl_cases():
+    _equal(ccl.ccl_paint(vcg.to(dev))[:2], (cc, N))
+    for K in (1, 2):
+      T = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31,
+                                       (vcg.shape[0], K, 256),
+                                       dtype=np.int64).astype(np.int32))
+      got = ccl.ccl_paint(vcg.to(dev), T.to(dev))
+      torch.cuda.synchronize()
+      _equal(got, (cc, N, ccl.paint_plain(cc, T)))
+    got = ccl.ccl_min(vcg.to(dev))
+    torch.cuda.synchronize()
+    _equal(got, (L, tgt))
 
 
 def _equal(got, want):
