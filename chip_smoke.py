@@ -19,7 +19,9 @@ Phases, one line each (phases 8 to 12 several):
      condensed-pins compress of the 512^3 volume, numpy label
      statistics of it and cutouts of the decoded volumes. Kernel,
      plain and library-call times with CUDA events at the 512^3 slice
-     shapes, once the children have ended;
+     shapes, once the children have ended (each kernel and the library
+     call over 200 launches in one CUDA graph, and over 10 eager
+     launches beside it);
   4. the flat main path: upload_stream of the 512^3 volume and
      decode_window(0, 512, check_crcs=True), labels bit-equal to the
      host decoder;
@@ -30,20 +32,24 @@ Phases, one line each (phases 8 to 12 several):
   8. launch counts of the flat path; steady-state time per volume of
      each volume, the time of each stage, each CCL pass's device time
      at B = 512 (torch.profiler, by kernel name, over one ccl_paint and
-     one ccl_min call) at the default tile and at smaller ones, and the
-     card's busy share over three 512^3 decodes (torch.profiler);
+     one ccl_min call) at the default tile and at smaller ones, the
+     flat kernels' shares of their bounds at B = 512, and the card's
+     busy share over three 512^3 decodes (torch.profiler);
   9. the compact-cancel path (replay.CANCEL_COMPACT): upload_stream and
      decode_window(0, 512, check_crcs=True) of the 512^3 volume against
      the oracle, its launch counts, steady times beside the default
-     path's, and its stage times against replay_positions';
+     path's, and its stage times against replay_positions', with their
+     shares of the bound at B = 512;
  10. the pins path: the 512^3 pins stream and the 256^2 x 128 pins
      volume uploaded and decoded (whole and a window) against the
      oracle, its launch counts, steady times and stage times, and
-     ccl_min + plant against ccl_paint twice on the same VCG;
+     ccl_min + plant against ccl_paint twice on the same VCG, and the
+     shares of the bound of ccl_min and plant at B = 512;
  11. analytics: voxel_counts, centroids and bounding_boxes of the flat
      512^3 stream against the numpy oracle (counts and boxes equal,
      centroids within rtol 1e-12), their wall times, launch counts and
-     the slice_stats time per 256-slice window;
+     the slice_stats time per 256-slice window with its bound and share,
+     its two passes (torch.profiler) and its time at other band sizes;
  12. CrackleDeviceArray cutouts of the 512^3, u64 and pins 512^3
      streams against the same cutouts of the decoded volumes, and
      check_crcs().
@@ -250,6 +256,49 @@ def cuda_ms(fn, reps):
   end.record()
   torch.cuda.synchronize()
   return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+  """Mean device milliseconds of fn() over reps back-to-back runs
+  captured in one CUDA graph and replayed once (after a warm replay),
+  so that no host time falls between the launches: for kernels of a
+  few microseconds, whose wrapper's Python outlasts them."""
+  fn()
+  torch.cuda.synchronize()
+  g = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(g, capture_error_mode="relaxed"):
+    for _ in range(reps):
+      fn()
+  g.replay()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  g.replay()
+  end.record()
+  torch.cuda.synchronize()
+  del g
+  return start.elapsed_time(end) / reps
+
+
+def device_ms_by_kernel(fn, names):
+  """{name: device ms} of one fn() call, summed over the device events
+  whose kernel name holds f"{name}_kernel" (torch.profiler); {} where
+  the profiler recorded none."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  ms = {}
+  for e in prof.events():
+    hit = [k for k in names if f"{k}_kernel" in e.name]
+    if e.device_type == DeviceType.CUDA and hit:
+      ms[hit[0]] = ms.get(hit[0], 0.0) + (
+        e.time_range.end - e.time_range.start) / 1e3
+  return ms
 
 
 def wall_ms(fn, reps):
@@ -476,42 +525,90 @@ OPS_PER = {"replay_keys": 40, "replay_positions": 30, "paint_vcg": 15,
            "replay_positions_compact": 25}
 
 
-def kernel_bounds(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
-                  tablesp):
-  """name -> (bytes, ops, bound ms, "bytes" or "operations") on the
-  timed inputs: each input read once and each output written once, the
-  larger of bytes over the memory rate and operations over the 32-bit
-  rate. Where the work depends on the data (the close records a
-  compaction moves), only what these inputs need is counted."""
-  def nb(*ts):
-    return sum(x.numel() * x.element_size() for x in ts)
+def nbytes_of(*ts):
+  return sum(x.numel() * x.element_size() for x in ts)
 
+
+def compact_closes_io(dense, tables):
+  """(bytes, elements) of compact_closes: the dest plane read once, each
+  close's pos and sums read once (only the closes these records hold),
+  the tables written once."""
+  _, B, CAP = dense.shape
+  closes = int((dense[0] >= 0).sum())
+  return B * CAP * 4 + closes * 12 + nbytes_of(tables), B * CAP
+
+
+def slice_stats_io(cc, cap_n):
+  """(bytes, elements) of slice_stats: the ids read once, the (B, cap_n,
+  8) int64 statistics written once."""
+  return nbytes_of(cc) + cc.shape[0] * cap_n * 8 * 8, cc.numel()
+
+
+def kernel_io(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
+              tablesp):
+  """name -> (bytes, elements) of each kernel on these inputs: each
+  input read once and each output written once; where the work depends
+  on the data (the close records a compaction moves), only what these
+  inputs need is counted."""
   B, CAP = skp.shape
   npx = vp.numel()
   K = t["T"].shape[1]
-  closes = int((densep[0] >= 0).sum())
   kept = int((tablesp[0] < CAP).sum())
-  io = {
-    "replay_keys": (nb(t["packed"], t["nbytes"], t["n_chains"])
+  return {
+    "replay_keys": (nbytes_of(t["packed"], t["nbytes"], t["n_chains"])
                     + B * CAP * (8 + 4), B * CAP),
-    "replay_positions": (nb(skp, cp, t["nodes"], idsp), B * CAP),
-    "paint_vcg": (nb(idsp, vp), B * CAP + npx),
-    "ccl_paint": (nb(vp, t["T"]) + npx * 4 * (1 + K) + B * 4, npx),
-    "ccl_min": (nb(vp) + 2 * npx * 4, npx),
-    "plant": (nb(Lp, roots, t["T"]) + npx * 4 * (1 + K), npx),
-    "slice_stats": (nb(ccp) + B * cap_s * 8 * 8, npx),
-    "cancel_sums": (nb(skp, densep), B * CAP),
-    "compact_closes": (B * CAP * 4 + closes * 12 + nb(tablesp), B * CAP),
-    "replay_positions_compact": (nb(cp, t["nodes"], tablesp[0], idsp)
+    "replay_positions": (nbytes_of(skp, cp, t["nodes"], idsp), B * CAP),
+    "paint_vcg": (nbytes_of(idsp, vp), B * CAP + npx),
+    "ccl_paint": (nbytes_of(vp, t["T"]) + npx * 4 * (1 + K) + B * 4, npx),
+    "ccl_min": (nbytes_of(vp) + 2 * npx * 4, npx),
+    "plant": (nbytes_of(Lp, roots, t["T"]) + npx * 4 * (1 + K), npx),
+    "slice_stats": slice_stats_io(ccp, cap_s),
+    "cancel_sums": (nbytes_of(skp, densep), B * CAP),
+    "compact_closes": compact_closes_io(densep, tablesp),
+    "replay_positions_compact": (nbytes_of(cp, t["nodes"], tablesp[0], idsp)
                                  + kept * 8, B * CAP),
   }
-  out = {}
-  for name, (nbytes, elems) in io.items():
-    ops = OPS_PER[name] * elems
-    tb, to = nbytes / MEM_BYTES_PER_S, ops / OPS_PER_S
-    out[name] = (nbytes, ops, 1e3 * max(tb, to),
-                 "bytes" if tb >= to else "operations")
-  return out
+
+
+def bound(name, nbytes, elems):
+  """(bytes, ops, bound ms, "bytes" or "operations") of a kernel that
+  moves nbytes over elems elements, at any batch: the larger of bytes
+  over the memory rate and its operations over the 32-bit rate."""
+  ops = OPS_PER[name] * elems
+  tb, to = nbytes / MEM_BYTES_PER_S, ops / OPS_PER_S
+  return nbytes, ops, 1e3 * max(tb, to), "bytes" if tb >= to else \
+    "operations"
+
+
+def share_line(name, ms, io, batch):
+  """name: time, bound and share of the bound at a batch of slices."""
+  nb, nops, bms, by = bound(name, *io)
+  return (f"{name} {ms:.4f} ms, bound {bms * 1e3:.2f} us by {by} ({nb} "
+          f"bytes, {nops} ops; {100 * bms / ms:.1f}% of the bound at "
+          f"B={batch})")
+
+
+def full_io(s):
+  """kernel_io of the whole flat stream (B = sz): each stage's inputs
+  and outputs made once by the kernels, and only their sizes kept."""
+  h = s.head
+  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  skeys = torch.sort(keys, 1).values
+  del keys
+  ids = replay.replay_positions(skeys, cls, s.nodes, h.sx, h.sy)
+  vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
+  cc, N, _ = ccl.ccl_paint(vcg, s.T)
+  L, tgt = ccl.ccl_min(vcg)
+  cap2 = ccl._pow2_cap(int(N.max()))
+  roots, _ = ccl.roots_from_tgt(tgt, cap2)
+  del tgt
+  dense = replay.cancel_sums(skeys)
+  tables = replay.compact_closes(dense, replay.close_cap(
+    skeys.shape[1], s.nodes.shape[1]))
+  t = {"packed": s.packed, "nbytes": s.nbytes, "n_chains": s.n_chains,
+       "nodes": s.nodes, "T": s.T}
+  return kernel_io(t, skeys, cls, ids, vcg, L, roots, cc, cap2, dense,
+                   tables)
 
 
 def check_path(name, launches):
@@ -648,26 +745,35 @@ def run(dev, card, kind, oracles, paths, t_or):
       lambda: replay.replay_positions_compact_plain(
         cp, tablesp, t["nodes"], sx, sy)),
   }
-  times = {}
+  # each kernel over 200 launches in one CUDA graph (the wrappers'
+  # Python outlasts the shortest kernels), and over 10 eager launches
+  # beside it
+  times, eager = {}, {}
   for name, (kern, plain) in args.items():
-    times[name] = (cuda_ms(kern, 10), cuda_ms(plain, 2))
+    eager[name] = cuda_ms(kern, 10)
+    times[name] = (graph_ms(kern, 200), cuda_ms(plain, 2))
   library = {name: None for name in args}
   # the one PyTorch call that computes compact_closes: a scatter of the
-  # stacked records by rank into tables set empty (pos CAP, sums 0)
+  # stacked records by rank into tables set empty (pos CAP, sums 0),
+  # timed as the kernels are
   dest = densep[0].to(torch.int64)
   tgt = torch.where((dest >= 0) & (dest < ccap), dest, ccap).expand(
     3, *dest.shape).contiguous()
   empty = torch.zeros((3, dest.shape[0], ccap + 1), dtype=torch.int32,
                       device=dev)
   empty[0] = dest.shape[1]
-  library["compact_closes"] = cuda_ms(
-    lambda: empty.scatter_(2, tgt, densep[1:]), 10)
-  bounds = kernel_bounds(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s,
-                         densep, tablesp)
+  library["compact_closes"] = graph_ms(
+    lambda: empty.scatter_(2, tgt, densep[1:]), 200)
+  eager["scatter_"] = cuda_ms(lambda: empty.scatter_(2, tgt, densep[1:]),
+                              10)
+  bounds = {name: bound(name, *io) for name, io in kernel_io(
+    t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp).items()}
   del sub, args, t, skp, cp, idsp, vp, Lp, roots, ccp, densep, tablesp
   del dest, tgt, empty
 
   launches = {}
+  # name -> (batch, ms, bound ms) at the batch its path runs
+  full = {}
   # 4: the flat main path
   ct.reset_launches()
   torch.cuda.synchronize()
@@ -755,7 +861,18 @@ def run(dev, card, kind, oracles, paths, t_or):
     say(8, f"{name}: kernel {km:.4f} ms, plain {pm:.4f} ms, library call "
            + (f"{lib:.4f} ms" if lib is not None else "none")
            + f", bound {bms * 1e3:.2f} us by {by} ({nb} bytes, {nops} ops; "
-             f"{100 * bms / km:.1f}% of the bound) (B=32 slices of 512^3)")
+             f"{100 * bms / km:.1f}% of the bound) (B=32 slices of 512^3; "
+             f"200 launches in one CUDA graph; 10 eager launches "
+             f"{eager[name]:.4f} ms)")
+  km, lib = times["compact_closes"][0], library["compact_closes"]
+  say(8, f"compact_closes {km:.4f} ms against its library call (scatter_)"
+         f" {lib:.4f} ms at B=32, 200 launches in one CUDA graph each "
+         f"({'no slower' if km <= lib else 'SLOWER'}); 10 eager launches "
+         f"{eager['compact_closes']:.4f} and {eager['scatter_']:.4f} ms")
+  io512 = full_io(stream)
+  for name in ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"):
+    full[name] = (512, stages[name], bound(name, *io512[name])[2])
+    say(8, "512^3 stage " + share_line(name, stages[name], io512[name], 512))
   say(8, busy_share(stream))
 
   # 9: the compact-cancel path on the same volume
@@ -788,6 +905,11 @@ def run(dev, card, kind, oracles, paths, t_or):
       + f"; cancel_sums + compact_closes + replay_positions_compact "
         f"{sum(v for k, v in ctimes.items() if k != 'replay_positions'):.3f}"
         f" against replay_positions {ctimes['replay_positions']:.3f}")
+  for name in ("cancel_sums", "compact_closes", "replay_positions_compact"):
+    full[name] = (512, ctimes[name], bound(name, *io512[name])[2])
+    say(9, "512^3 stage " + share_line(name, ctimes[name], io512[name], 512)
+           + (" (200 launches in one CUDA graph)"
+              if name == "compact_closes" else ""))
   del cs
   del small
 
@@ -834,6 +956,13 @@ def run(dev, card, kind, oracles, paths, t_or):
       + f"; CCL and paint as ccl_min + roots_from_tgt + plant x2 "
         f"{ptimes['v2']:.3f} ms, as ccl_paint K=0 + ccl_paint K=1 "
         f"{ptimes['v1']:.3f} ms")
+  # bounds from the flat stream's tensors of the same volume (plant: its
+  # K = 1 table and roots, which differ from the pins ones only in the
+  # roots' few kilobytes)
+  for name, stage in (("ccl_min", "ccl_min"), ("plant", "plant K=1")):
+    full[name] = (512, ptimes[stage], bound(name, *io512[name])[2])
+    say(10, "pins 512^3 stage " + share_line(name, ptimes[stage],
+                                             io512[name], 512))
   del ps, p256, want
 
   # 11: analytics of the flat 512^3 stream
@@ -860,9 +989,26 @@ def run(dev, card, kind, oracles, paths, t_or):
   cc_w, _, _ = ct.decode_window_ccl_device(b512, 0, 256, dev)
   _, cum, _ = eng._flat_label_tables(head, b512)
   cap_w = eng._next_pow2(max(int((cum[1:] - cum[:-1]).max()), 8))
-  ms_w = cuda_ms(lambda: stats.slice_stats(cc_w, 512, 512, cap_w), 5)
-  say(11, f"slice_stats per 256-slice window of 512^3 (cap_n {cap_w}): "
-          f"{ms_w:.4f} ms (CUDA events, mean of 5)")
+  ms_w = cuda_ms(lambda: stats.slice_stats(cc_w, 512, 512, cap_w), 20)
+  io_w = slice_stats_io(cc_w, cap_w)
+  full["slice_stats"] = (256, ms_w, bound("slice_stats", *io_w)[2])
+  say(11, f"per 256-slice window of 512^3 (cap_n {cap_w}; CUDA events, "
+          f"mean of 20): " + share_line("slice_stats", ms_w, io_w, 256))
+  parts = device_ms_by_kernel(
+    lambda: stats.slice_stats(cc_w, 512, 512, cap_w),
+    ("stats_init", "slice_stats"))
+  say(11, "slice_stats passes per window (torch.profiler, one call): "
+          + (", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+             if parts else "not measured"))
+  default = stats.BAND_PX
+  for band_px in (8192, 32768, default):
+    stats.BAND_PX = band_px
+    try:
+      ms = cuda_ms(lambda: stats.slice_stats(cc_w, 512, 512, cap_w), 20)
+    finally:
+      stats.BAND_PX = default
+    say(11, f"slice_stats per window at BAND_PX {band_px} "
+            f"({max(1, band_px // 512)} rows a band): {ms:.4f} ms")
   del cc_w
 
   # 12: CrackleDeviceArray cutouts
@@ -890,7 +1036,9 @@ def run(dev, card, kind, oracles, paths, t_or):
            "max_abs_err": errs[name], "ms": times[name][0],
            "plain_ms": times[name][1], "bound_ms": bounds[name][2],
            "bound_by": bounds[name][3], "library_ms": library[name],
-           "timed_batch": 32}
+           "timed_batch": 32, "path_batch": full[name][0],
+           "path_batch_ms": full[name][1],
+           "path_batch_bound_ms": full[name][2]}
     if also:
       row["also_replaces"] = also
     out.append(row)
@@ -949,8 +1097,6 @@ def ccl_pass_times(s, tile):
   table) and one ccl_min call on the full volume's VCG at
   ccl.TILE_PIX = tile, summed by kernel name from torch.profiler's
   device events; None where the profiler recorded no pass."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
   h = s.head
   keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
   ids = replay.replay_positions(torch.sort(keys, 1).values, cls, s.nodes,
@@ -962,20 +1108,9 @@ def ccl_pass_times(s, tile):
                    ("ccl_min", lambda: ccl.ccl_min(vcg))):
     ccl.TILE_PIX = tile
     try:
-      fn()
-      torch.cuda.synchronize()
-      with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+      out[name] = device_ms_by_kernel(fn, CCL_PASSES) or None
     finally:
       ccl.TILE_PIX = default
-    ms = {}
-    for e in prof.events():
-      hit = [k for k in CCL_PASSES if f"{k}_kernel" in e.name]
-      if e.device_type == DeviceType.CUDA and hit:
-        ms[hit[0]] = ms.get(hit[0], 0.0) + (
-          e.time_range.end - e.time_range.start) / 1e3
-    out[name] = ms or None
   return out
 
 
@@ -990,7 +1125,8 @@ def compact_stage_times(s):
   tables = replay.compact_closes(dense, ccap)
   return {
     "cancel_sums": cuda_ms(lambda: replay.cancel_sums(skeys), 3),
-    "compact_closes": cuda_ms(lambda: replay.compact_closes(dense, ccap), 3),
+    "compact_closes": graph_ms(lambda: replay.compact_closes(dense, ccap),
+                               200),
     "replay_positions_compact": cuda_ms(
       lambda: replay.replay_positions_compact(cls, tables, s.nodes, h.sx,
                                               h.sy), 3),

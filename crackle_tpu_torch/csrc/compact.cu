@@ -10,9 +10,13 @@
 //
 // What bounds them on this card: cancel_sums and the replay are a
 // handful of integer operations per codepoint behind a chain of
-// block-wide scans per tile, like the other replay kernels; the
-// compaction is one store per close and is bound by bytes. One block
-// per slice; scan state rides across tiles in registers.
+// block-wide scans per tile, like the other replay kernels, one block
+// per slice with scan state riding across tiles in registers. The
+// compaction is bound by bytes: the dest plane is read once (4 bytes a
+// slot), a close's pos and sums once, and the tables written once. At
+// one block per slice it sat on load latency (32 of 132 SMs busy at
+// B = 32, one dependent 4-byte load per thread per round), so it now
+// runs on a (chunks, B) grid of 16-byte loads; see kernel i.
 #include "replay.cuh"
 
 using namespace ckl;
@@ -102,35 +106,105 @@ __global__ void cancel_sums_kernel(const long long* __restrict__ skeys,
 
 // Kernel i. Replaces replay_big._compact_kernel. The rank is the
 // destination, so each close record is one plain store into the
-// slice's (3, CCAP) tables (pos, sumH, sumV) after the block has set
-// them empty (pos CAP, sums 0). A rank at or past CCAP (only a corrupt
-// stream) is dropped, never stored out of bounds; the CRC gate reports
-// the slice. The TPU's window limits and one-hot matmuls at HIGHEST
-// precision are not needed.
-__global__ void compact_closes_kernel(const int* __restrict__ dest,
-                                      const int* __restrict__ pos,
-                                      const int* __restrict__ sumh,
-                                      const int* __restrict__ sumv,
-                                      int* __restrict__ cpos,
-                                      int* __restrict__ csumh,
-                                      int* __restrict__ csumv, int CAP,
-                                      int CCAP) {
-  const int b = blockIdx.x;
+// slice's (3, CCAP) tables (pos, sumH, sumV). A rank at or past CCAP
+// (only a corrupt stream) is dropped, never stored out of bounds; the
+// CRC gate reports the slice. The TPU's window limits and one-hot
+// matmuls at HIGHEST precision are not needed.
+//
+// Grid (chunks, B): a block of CC_THREADS threads takes CC_SLOTS dest
+// slots of one slice, CC_VEC 16-byte loads a thread issued together
+// (B = 32 at CAP 32768 gives 512 blocks), and reads pos, sumH and sumV
+// only at closes. Ranks are a prefix count over the slice's slots
+// (cancel_sums writes them so), so entries below the slice's close
+// count n are each stored by exactly one close and entries from n up
+// are the empty ones (pos CAP, sums 0): the two sets are disjoint, and
+// the empty fill needs no order against the stores, only n, which is
+// the sum of the chunks' close counts. So each block adds its count and
+// a ticket in one 64-bit atomicAdd to the slice's word of `scratch`
+// ((B,) zeroed int64 from the wrapper: ticket << 32 | count); the block
+// that draws the last ticket reads the whole count in the value the
+// add returns and fills the tail. One launch, each table entry written
+// once (a fill before a barrier wrote the table twice), no fence.
+constexpr int CC_THREADS = 256;
+constexpr int CC_VEC = 2;
+constexpr int CC_SLOTS = 4 * CC_VEC * CC_THREADS;
+
+__device__ __forceinline__ void fill_int(int* p, int lo, int hi, int v,
+                                         bool vec) {
+  if (vec) {  // p is 16-byte aligned: head to a multiple of 4, then int4
+    const int a = min((lo + 3) & ~3, hi);
+    for (int r = lo + threadIdx.x; r < a; r += blockDim.x) p[r] = v;
+    const int4 q = make_int4(v, v, v, v);
+    for (int r = a + 4 * threadIdx.x; r < hi; r += 4 * blockDim.x) {
+      if (r + 4 <= hi) {
+        *(int4*)(p + r) = q;
+      } else {
+        for (int k = r; k < hi; ++k) p[k] = v;
+      }
+    }
+  } else {
+    for (int r = lo + threadIdx.x; r < hi; r += blockDim.x) p[r] = v;
+  }
+}
+
+__global__ void __launch_bounds__(CC_THREADS)
+compact_closes_kernel(const int* __restrict__ dest,
+                      const int* __restrict__ pos,
+                      const int* __restrict__ sumh,
+                      const int* __restrict__ sumv, int* __restrict__ cpos,
+                      int* __restrict__ csumh, int* __restrict__ csumv,
+                      unsigned long long* __restrict__ scratch, int CAP,
+                      int CCAP) {
+  __shared__ int warp_n[CC_THREADS / 32];
+  __shared__ int tail;
+  const int b = blockIdx.y;
   const size_t in = (size_t)b * CAP;
   const size_t out = (size_t)b * CCAP;
-  for (int r = threadIdx.x; r < CCAP; r += blockDim.x) {
-    cpos[out + r] = CAP;
-    csumh[out + r] = 0;
-    csumv[out + r] = 0;
+  int d[4 * CC_VEC];
+#pragma unroll
+  for (int i = 0; i < CC_VEC; ++i) {
+    // slot runs of 4 a thread, the block's threads side by side
+    const int j = blockIdx.x * CC_SLOTS + 4 * (i * CC_THREADS + threadIdx.x);
+    if ((CAP & 3) == 0) {  // rows start 16-byte aligned
+      int4 q = make_int4(-1, -1, -1, -1);
+      if (j < CAP) q = __ldg((const int4*)(dest + in + j));
+      d[4 * i] = q.x; d[4 * i + 1] = q.y; d[4 * i + 2] = q.z;
+      d[4 * i + 3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        d[4 * i + k] = j + k < CAP ? __ldg(dest + in + j + k) : -1;
+    }
+  }
+  int n = 0;  // this thread's closes
+#pragma unroll
+  for (int i = 0; i < 4 * CC_VEC; ++i) {
+    const int j = blockIdx.x * CC_SLOTS + 4 * ((i >> 2) * CC_THREADS
+                                               + threadIdx.x) + (i & 3);
+    n += d[i] >= 0;
+    if (d[i] >= 0 && d[i] < CCAP) {
+      cpos[out + d[i]] = __ldg(pos + in + j);
+      csumh[out + d[i]] = __ldg(sumh + in + j);
+      csumv[out + d[i]] = __ldg(sumv + in + j);
+    }
+  }
+  n = __reduce_add_sync(FULL_MASK, n);
+  if ((threadIdx.x & 31) == 0) warp_n[threadIdx.x >> 5] = n;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < CC_THREADS / 32; ++w) n += warp_n[w];
+    const unsigned long long was =
+        atomicAdd(scratch + b, (1ull << 32) | (unsigned)n);
+    const bool last = (int)(was >> 32) == (int)gridDim.x - 1;
+    tail = last ? (int)min((was & 0xffffffffull) + n, (unsigned long long)CCAP)
+                : -1;
   }
   __syncthreads();
-  for (int j = threadIdx.x; j < CAP; j += blockDim.x) {
-    const int d = dest[in + j];
-    if (d >= 0 && d < CCAP) {
-      cpos[out + d] = pos[in + j];
-      csumh[out + d] = sumh[in + j];
-      csumv[out + d] = sumv[in + j];
-    }
+  if (tail >= 0) {
+    const bool vec = (CCAP & 3) == 0;
+    fill_int(cpos + out, tail, CCAP, CAP, vec);
+    fill_int(csumh + out, tail, CCAP, 0, vec);
+    fill_int(csumv + out, tail, CCAP, 0, vec);
   }
 }
 
@@ -179,15 +253,17 @@ int cancel_sums_launch(const void* skeys, void* dense, int B, int CAP,
   return (int)cudaGetLastError();
 }
 
-int compact_closes_launch(const void* dense, void* tables, int B, int CAP,
-                          int CCAP, void* stream) {
+int compact_closes_launch(const void* dense, void* tables, void* scratch,
+                          int B, int CAP, int CCAP, void* stream) {
   const int* d = (const int*)dense;
   int* t = (int*)tables;  // (3, B, CCAP): pos, sumH, sumV
   const size_t plane = (size_t)B * CAP;
   const size_t tplane = (size_t)B * CCAP;
-  compact_closes_kernel<<<B, 1024, 0, (cudaStream_t)stream>>>(
+  const int chunks = (CAP + CC_SLOTS - 1) / CC_SLOTS;
+  const dim3 grid(chunks > 0 ? chunks : 1, B);
+  compact_closes_kernel<<<grid, CC_THREADS, 0, (cudaStream_t)stream>>>(
       d, d + plane, d + 2 * plane, d + 3 * plane, t, t + tplane, t + 2 * tplane,
-      CAP, CCAP);
+      (unsigned long long*)scratch, CAP, CCAP);
   return (int)cudaGetLastError();
 }
 

@@ -53,12 +53,12 @@ _SIGNATURES = {
   "ccl_min_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
   # L, roots, T, cc, painted, B, n, K, cap_n, stream
   "plant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-  # cc, out, B, sx, sy, cap_n, stream
-  "slice_stats_launch": [_P, _P, _I, _I, _I, _I, _P],
+  # cc, out, B, sx, sy, cap_n, band_rows, stream
+  "slice_stats_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
   # skeys, dense, B, CAP, tile, stream
   "cancel_sums_launch": [_P, _P, _I, _I, _I, _P],
-  # dense, tables, B, CAP, CCAP, stream
-  "compact_closes_launch": [_P, _P, _I, _I, _I, _P],
+  # dense, tables, scratch, B, CAP, CCAP, stream
+  "compact_closes_launch": [_P, _P, _P, _I, _I, _I, _P],
   # cls, tables, nodes, cancel, ids, B, CAP, CCAP, CAP_CH, sx, sy, tile,
   # stream
   "replay_positions_compact_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,

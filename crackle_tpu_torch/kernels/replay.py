@@ -400,7 +400,9 @@ def compact_closes_plain(dense, ccap: int):
 
 def compact_closes(dense, ccap: int):
   """Kernel i: dense close records (4, B, CAP) int32 -> compact tables
-  (3, B, ccap) int32 (see compact_closes_plain)."""
+  (3, B, ccap) int32 (see compact_closes_plain). The ranks of each slice
+  must be a prefix count over its slots, as cancel_sums writes them: the
+  kernel fills the entries from the slice's close count up as empty."""
   _check("compact_closes", dense, torch.int32, 3)
   if dense.shape[0] != 4 or ccap < 1:
     raise ValueError("compact_closes: want (4, B, CAP) records and "
@@ -410,9 +412,13 @@ def compact_closes(dense, ccap: int):
   _, B, CAP = dense.shape
   tables = torch.empty((3, B, ccap), dtype=torch.int32, device=dense.device)
   if B:
+    if dense.data_ptr() % 16:  # the kernel reads dest in 16-byte loads
+      dense = dense.clone()
+    # per slice: tickets << 32 | closes, added by the kernel's blocks
+    scratch = torch.zeros(B, dtype=torch.int64, device=dense.device)
     lib = _build.library()
     err = lib.compact_closes_launch(
-      dense.data_ptr(), tables.data_ptr(), B, CAP, ccap,
+      dense.data_ptr(), tables.data_ptr(), scratch.data_ptr(), B, CAP, ccap,
       torch.cuda.current_stream(dense.device).cuda_stream)
     _build.check("compact_closes", err)
     _build.LAUNCHES["compact_closes"] += 1

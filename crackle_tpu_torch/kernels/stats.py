@@ -23,6 +23,10 @@ EMPTY_MIN = 2 ** 31 - 1
 # largest cap_n the kernel's shared-memory accumulators take
 MAX_CAP_N = 4096
 
+# pixels of a band, the rows one block of the kernel takes (whole rows,
+# at least one and at most 32); tests shrink it to cross band seams
+BAND_PX = 16384
+
 _KW = 128     # the reference's one-hot window height
 _STRIPE = 8   # the reference's rows per window-bound probe
 
@@ -79,11 +83,20 @@ def slice_stats(cc, sx: int, sy: int, cap_n: int):
     raise ValueError(f"slice_stats: cap_n {cap_n} outside [1, {MAX_CAP_N}]")
   if cc.device.type != "cuda":
     return slice_stats_plain(cc, sx, sy, cap_n)
+  band_rows = min(32, max(1, BAND_PX // sx))
+  # the kernel keeps a band's sums in 32 bits and a run's x-extent in 16
+  if (not 4 <= sx < 2 ** 16
+      or band_rows * sx * max(sx, band_rows) >= 2 ** 31):
+    raise ValueError(f"slice_stats: the kernel takes rows of 4 to "
+                     f"{2 ** 16 - 1} pixels whose bands' sums fit 32 bits, "
+                     f"got {sx}")
   B = cc.shape[0]
   out = torch.empty((B, cap_n, N_CH), dtype=torch.int64, device=cc.device)
   if B:
+    if cc.data_ptr() % 16:  # the kernel reads ids in 16-byte loads
+      cc = cc.clone()
     err = _build.library().slice_stats_launch(
-      cc.data_ptr(), out.data_ptr(), B, sx, sy, cap_n,
+      cc.data_ptr(), out.data_ptr(), B, sx, sy, cap_n, band_rows,
       torch.cuda.current_stream(cc.device).cuda_stream)
     _build.check("slice_stats", err)
     _build.LAUNCHES["slice_stats"] += 1

@@ -63,27 +63,24 @@ def compact_reference(monkeypatch):
   jax.clear_caches()
 
 
-@pytest.mark.parametrize("name", ["spiral", "random 33x17x3",
-                                  "random 16x16x3"])
-def test_cancel_sums_and_compaction_match_reference(compact_reference,
-                                                    name):
-  binary, head = _stream(name)
-  inputs = _padded_inputs(binary, head)
-  CAP = inputs["packed"].shape[1] * 4
-  assert replay_big.eligible(CAP, inputs["nodes"].shape[1], head.sx,
-                             head.sy)
+def _hold_to_reference(inputs, sx, sy, permissible):
+  """cancel_sums_plain and compact_closes_plain against the reference's
+  compact path (its stash) on padded slice inputs: the dense records at
+  the closes, and per slice the set of kept table entries, as many as
+  min(closes, table); every other entry of the port's tables is empty
+  (pos CAP, sums 0). Returns each slice's close count."""
+  B, CAP = inputs["packed"].shape[0], inputs["packed"].shape[1] * 4
+  assert replay_big.eligible(CAP, inputs["nodes"].shape[1], sx, sy)
   stash = {}
   replay_big.replay_vcg_i32_big(
     *(jnp.asarray(inputs[k]) for k in ("packed", "nbytes", "nodes",
                                        "n_chains")),
-    head.sx, head.sy, head.crack_format == CrackFormat.PERMISSIBLE,
-    stash=stash)
-  want = [np.asarray(a).reshape(head.sz, CAP) for a in stash["dense_close"]]
+    sx, sy, permissible, stash=stash)
+  want = [np.asarray(a).reshape(B, CAP) for a in stash["dense_close"]]
 
   t, skeys, _ = _port_stages(inputs)
   dense = replay.cancel_sums_plain(skeys).numpy()
   closes = want[0] >= 0
-  assert closes.any()
   np.testing.assert_array_equal(dense[0] >= 0, closes)
   for got, ref in zip(dense, want):  # dest, pos, sumH, sumV
     np.testing.assert_array_equal(got[closes], ref[closes])
@@ -91,13 +88,51 @@ def test_cancel_sums_and_compaction_match_reference(compact_reference,
   ccap = replay.close_cap(CAP, inputs["nodes"].shape[1])
   assert ccap == replay_big._close_rows(CAP, inputs["nodes"].shape[1]) * 128
   tables = replay.compact_closes_plain(torch.from_numpy(dense), ccap).numpy()
-  ref_tables = [np.asarray(a).reshape(head.sz, -1)
+  ref_tables = [np.asarray(a).reshape(B, -1)
                 for a in stash["compact_sorted"]]
-  for z in range(head.sz):
+  for z in range(B):
     got = {tuple(r) for r in tables[:, z].T if r[0] < CAP}
     ref = {tuple(r) for r in np.stack([a[z] for a in ref_tables], 1)
            if r[0] < CAP}
-    assert got == ref and len(got) == int(closes[z].sum())
+    assert got == ref and len(got) == min(int(closes[z].sum()), ccap)
+    empty = tables[0, z] >= CAP
+    assert (tables[0, z, empty] == CAP).all()
+    assert not tables[1:, z, empty].any()
+  return closes.sum(1)
+
+
+@pytest.mark.parametrize("name", ["spiral", "random 33x17x3",
+                                  "random 16x16x3"])
+def test_cancel_sums_and_compaction_match_reference(compact_reference,
+                                                    name):
+  binary, head = _stream(name)
+  n = _hold_to_reference(_padded_inputs(binary, head), head.sx, head.sy,
+                         head.crack_format == CrackFormat.PERMISSIBLE)
+  assert n.any()
+
+
+def _no_close_slice_inputs():
+  """The spiral slice, then a slice of one label: no cracks, no
+  closes."""
+  vol = spiral_volume()
+  vol = np.asfortranarray(np.concatenate(
+    [vol, np.full_like(vol, 3)], axis=2))
+  binary = crackle.compress(vol)
+  return _padded_inputs(binary, crackle.header(binary)), vol.shape[:2]
+
+
+@pytest.mark.parametrize("case", ["no closes", "past the table"])
+def test_compaction_edges_match_reference(compact_reference, case):
+  """The compaction's edge slices against the reference's: a slice with
+  no close (its table all empty), and a corrupt slice whose 2048 closes
+  pass its 1536-entry table (the reference keeps ranks 0-1535 too)."""
+  if case == "no closes":
+    inputs, (sx, sy) = _no_close_slice_inputs()
+    n = _hold_to_reference(inputs, sx, sy, False)
+    assert n[0] > 0 and n[1] == 0
+  else:
+    n = _hold_to_reference(many_closes_inputs(), 40, 30, False)
+    assert n.tolist() == [2048] and replay.close_cap(4096, 2) == 1536
 
 
 @pytest.mark.parametrize("tile", [32, 256, 1024])

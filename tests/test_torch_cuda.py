@@ -22,6 +22,7 @@ from test_torch_ccl import (hard_vcgs, labels_to_vcg, serpentine_vcg,
 from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, spiral_volume
+from test_torch_stats import STATS_EDGES, stats_edge_case
 
 pytestmark = pytest.mark.cuda
 
@@ -154,6 +155,56 @@ def test_compact_kernels_on_corrupt_streams(dev):
   _compact_stages(t, inputs["head"])
 
 
+def compact_edge_case(name):
+  """(dense (4, B, CAP) int32, ccap) close records at the compaction
+  kernel's seams: its blocks take 1024 slots of a slice. Ranks are a
+  prefix count over each slice's close slots, as cancel_sums writes
+  them; pos and sums are random."""
+  rng = np.random.RandomState(len(name))
+  B, CAP, ccap = 3, 4096, 1536
+  close = np.zeros((B, CAP), bool)
+  if name == "a slice with no closes":
+    close[0, rng.rand(CAP) < 0.1] = True
+    close[2, ::7] = True  # slice 1 has none
+  elif name == "last close in the first chunk":
+    close[:, rng.choice(1024, 300, replace=False)] = True
+    close[1, 1023] = True
+  elif name == "closes across chunk seams":
+    for seam in (1024, 2048, 3072):
+      close[:, seam - 6:seam + 5] = True
+  elif name == "ranks past the table":
+    close[0, ::2] = True  # 2048 closes, 512 past the table
+    close[1, :ccap + 1] = True
+    close[2, rng.rand(CAP) < 0.3] = True
+  elif name in ("B = 1", "B = 64"):
+    B = 1 if name == "B = 1" else 64
+    close = rng.rand(B, CAP) < rng.rand(B, 1) * 0.4
+  elif name == "CAP 4098, ccap 1001":  # unaligned rows: 4-byte loads
+    B, CAP, ccap = 2, 4098, 1001
+    close = rng.rand(B, CAP) < 0.2
+  else:
+    raise KeyError(name)
+  dest = np.where(close, np.cumsum(close, 1) - 1, -1)
+  vals = rng.randint(-2 ** 31, 2 ** 31, (3, B, CAP), dtype=np.int64)
+  dense = np.concatenate([dest[None], vals]).astype(np.int32)
+  return torch.from_numpy(dense), ccap
+
+
+@pytest.mark.parametrize("name", [
+  "a slice with no closes", "last close in the first chunk",
+  "closes across chunk seams", "ranks past the table", "B = 1", "B = 64",
+  "CAP 4098, ccap 1001"])
+def test_compact_closes_at_chunk_seams(dev, name):
+  dense, ccap = compact_edge_case(name)
+  got = replay.compact_closes(dense.to(dev), ccap)
+  torch.cuda.synchronize()
+  _equal([got], [replay.compact_closes_plain(dense, ccap)])
+  # a view 4 bytes into its storage takes the same answer
+  flat = torch.cat([torch.zeros(1, dtype=torch.int32), dense.reshape(-1)])
+  view = flat.to(dev)[1:].view(dense.shape)
+  _equal([replay.compact_closes(view, ccap)], [got])
+
+
 def test_compact_path_decodes_on_card(dev, monkeypatch):
   monkeypatch.setattr(replay, "CANCEL_COMPACT", True)
   binary = crackle.compress(np.concatenate([spiral_volume()] * 2, axis=2))
@@ -280,6 +331,24 @@ def test_slice_stats_match_plain(dev, sy, sx, cap_n):
     got = stats.slice_stats(ids.to(dev), sx, sy, cap_n)
     torch.cuda.synchronize()
     _equal([got], [stats.slice_stats_plain(ids, sx, sy, cap_n)])
+
+
+@pytest.mark.parametrize("band_rows", [None, 3, 1])
+@pytest.mark.parametrize("name", STATS_EDGES)
+def test_slice_stats_at_band_seams(dev, monkeypatch, name, band_rows):
+  """The stats kernel against its plain version at the default band and
+  at bands of 3 rows and of 1, so that bands end inside components and
+  (3 rows) short of the slice's end; see stats_edge_case."""
+  cc, sx, sy, cap_n = stats_edge_case(name)
+  if band_rows:
+    monkeypatch.setattr(stats, "BAND_PX", band_rows * sx)
+  got = stats.slice_stats(cc.to(dev), sx, sy, cap_n)
+  torch.cuda.synchronize()
+  _equal([got], [stats.slice_stats_plain(cc, sx, sy, cap_n)])
+  # a view 4 bytes into its storage takes the same answer
+  flat = torch.cat([torch.zeros(1, dtype=torch.int32), cc.reshape(-1)])
+  _equal([stats.slice_stats(flat.to(dev)[1:].view(cc.shape), sx, sy,
+                            cap_n)], [got])
 
 
 def test_pins_stream_matches_cpu(dev):

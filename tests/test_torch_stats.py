@@ -31,17 +31,14 @@ def interpret(monkeypatch):
   jax.clear_caches()
 
 
-@pytest.mark.parametrize("B,sy,sx,n,rounds", [(3, 24, 40, 6, 12),
-                                              (2, 16, 8, 40, 0),
-                                              (1, 8, 33, 3, 4)])
-def test_slice_stats_matches_pallas(interpret, B, sy, sx, n, rounds):
-  cc, N, _ = ccl.ccl_paint(torch.from_numpy(
-    labels_to_vcg(smooth_labels(B, sy, sx, n, sx, rounds))))
-  cap_n = ccl._pow2_cap(int(N.max()))
+def _hold_to_pallas(cc, sx, sy, cap_n):
+  """slice_stats (the plain version, on the CPU) against stats_pallas in
+  interpret mode: counts, sums and maxes equal, mins equal once the
+  port's EMPTY_MIN is read as the reference's f32 3e38."""
   want = np.asarray(stats_pallas.slice_stats(
     jnp.asarray(cc.numpy()), sx, sy, cap_n))
   got = stats.slice_stats(cc, sx, sy, cap_n)
-  assert got.dtype == torch.int64 and got.shape == (B, cap_n, 8)
+  assert got.dtype == torch.int64 and got.shape == (cc.shape[0], cap_n, 8)
   got = got.numpy()
   for ch in (stats.CH_COUNT, stats.CH_XSUM, stats.CH_YSUM, stats.CH_XMAX,
              stats.CH_YMAX):
@@ -51,6 +48,66 @@ def test_slice_stats_matches_pallas(interpret, B, sy, sx, n, rounds):
                       stats_pallas._F32MAX, got[:, :, ch])
     np.testing.assert_array_equal(mapped.astype(np.float32),
                                   want[:, :, ch])
+
+
+@pytest.mark.parametrize("B,sy,sx,n,rounds", [(3, 24, 40, 6, 12),
+                                              (2, 16, 8, 40, 0),
+                                              (1, 8, 33, 3, 4)])
+def test_slice_stats_matches_pallas(interpret, B, sy, sx, n, rounds):
+  cc, N, _ = ccl.ccl_paint(torch.from_numpy(
+    labels_to_vcg(smooth_labels(B, sy, sx, n, sx, rounds))))
+  _hold_to_pallas(cc, sx, sy, ccl._pow2_cap(int(N.max())))
+
+
+def stats_edge_case(name):
+  """(cc (B, sy*sx) int32, sx, sy, cap_n) of the slice_stats kernel's
+  seams and extremes. The kernel walks bands of stats.BAND_PX pixels
+  (whole rows) and, in each, warps of spans of 128 pixels; the card
+  tests shrink BAND_PX to put band seams inside these shapes. The first
+  four are first-visit CCL images, as the reference takes them."""
+  def paint(labels):
+    return ccl.ccl_paint_plain(torch.from_numpy(labels_to_vcg(labels)))[0]
+
+  if name == "band seams":
+    # a bar through all 40 rows whose 151-pixel rows cross span seams,
+    # on smooth labels; sy = 40 is no multiple of 3-row bands
+    labels = smooth_labels(2, 40, 300, 5, 3, 8) + 1
+    labels[:, :, 100:251] = 0
+    cc, sx, sy = paint(labels), 300, 40
+  elif name == "checkerboard":  # no links: every pixel its component
+    cc, sx, sy = paint(np.arange(2 * 8 * 16).reshape(2, 8, 16)), 16, 8
+  elif name == "one component":
+    cc, sx, sy = paint(np.zeros((2, 64, 64), np.int32)), 64, 64
+  elif name == "sx 8":
+    cc, sx, sy = paint(smooth_labels(3, 64, 8, 6, 8)), 8, 64
+  elif name == "sx 1024":  # blocks of 97 x 5 pixels, across span seams
+    y, x = np.divmod(np.arange(16 * 1024), 1024)
+    labels = (x // 97 + 3 * (y // 5)) % 6
+    cc, sx, sy = paint(np.stack([labels, labels[::-1]]).reshape(
+      2, 16, 1024)), 1024, 16
+  elif name == "two-colour checkerboard":  # every pixel its own run
+    y, x = np.divmod(np.arange(64 * 64), 64)
+    cc, sx, sy = torch.from_numpy(((x + y) % 2)[None].astype(np.int32)), 64, 64
+  elif name == "cap_n 4096":  # 4096 singletons, and noise past cap_n
+    rng = np.random.RandomState(11)
+    cc = torch.from_numpy(np.stack([
+      rng.permutation(4096), rng.randint(-5, 4100, 4096)]).astype(np.int32))
+    sx, sy = 64, 64
+    return cc, sx, sy, 4096
+  else:
+    raise KeyError(name)
+  return cc, sx, sy, ccl._pow2_cap(int(cc.max()) + 1)
+
+
+STATS_EDGES = ["band seams", "checkerboard", "one component", "sx 8",
+               "sx 1024", "two-colour checkerboard", "cap_n 4096"]
+
+
+@pytest.mark.parametrize("name", ["checkerboard", "band seams"])
+def test_slice_stats_edges_match_pallas(interpret, name):
+  """The plain version, which the kernel is held to on the card, against
+  the reference on a slice of singletons and on the band-seam shape."""
+  _hold_to_pallas(*stats_edge_case(name))
 
 
 def test_slice_stats_plain_against_numpy():
