@@ -3,13 +3,14 @@
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phases 8 to 12 several):
+Phases, one line each (phases 8 to 13 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
      the first 32 slices of the 512^3 bench volume, all of the 256^2 x
      128 one and of the 256^2 x 128 pins one (plus the u64 paint, a
-     tile-seam run of the replay, and the CCL kernels at a 64-pixel
+     tile-seam run of the replay, replay_positions with its depth
+     table in the scratch tensor, and the CCL kernels at a 64-pixel
      tile on the 256^2 x 128 VCG and on a 512^2 snake and checkerboard,
      at both tiles); ccl_min -> roots_from_tgt -> plant against
      ccl_paint and the compact-cancel kernels' edge ids against
@@ -24,13 +25,14 @@ Phases, one line each (phases 8 to 12 several):
      launches beside it);
   4. the flat main path: upload_stream of the 512^3 volume and
      decode_window(0, 512, check_crcs=True), labels bit-equal to the
-     host decoder;
+     host decoder, with no call of torch.sort or replay.sorted_keys;
   5. decode_window(100, 164) of the same stream;
   6. the u64 watershed, 256^2 x 128 and markov 256^2 x 128 volumes the
      same way;
   7. a flipped stored CRC word must raise FormatError naming its z;
   8. launch counts of the flat path; steady-state time per volume of
-     each volume, the time of each stage, each CCL pass's device time
+     each volume, the time of each stage, the replay stage against its
+     whole-stage bound beside the sort-based design's key sort, each CCL pass's device time
      at B = 512 (torch.profiler, by kernel name, over one ccl_paint and
      one ccl_min call) at the default tile and at smaller ones, the
      flat kernels' shares of their bounds at B = 512, and the card's
@@ -52,7 +54,12 @@ Phases, one line each (phases 8 to 12 several):
      its two passes (torch.profiler) and its time at other band sizes;
  12. CrackleDeviceArray cutouts of the 512^3, u64 and pins 512^3
      streams against the same cutouts of the decoded volumes, and
-     check_crcs().
+     check_crcs();
+ 13. a blocky 1024^2 x 8 volume (the oracle makes it from a seed and
+     compresses it flat and with pins): both streams decoded with the
+     CRC gate against it (the paint in bands, past one block's shared
+     memory), the paint kernel against its plain version on their edge
+     ids, and the flat stream's analytics against numpy statistics.
 
 Any failure raises and exits non-zero; without a CUDA device the
 script exits 2 and prints no result, and it imports nothing of JAX or
@@ -87,6 +94,9 @@ VOLU64 = os.path.join(DATA, "watershed_u64_256x256x128.ckl")
 VOLMKV = os.path.join(DATA, "connectomics_v2_mkv5_256x256x128.ckl")
 VOLPINS = os.path.join(DATA, "connectomics_v2_pins_256x256x128.ckl")
 
+# the seed of the blocky 1024^2 x 8 volume of phase 13
+SEED_1024 = 11
+
 # CrackleDeviceArray cutouts held against the same cutouts of the
 # oracle's decoded volume, as the text inside np.s_[...], in forms where
 # numpy's indexing and CrackleArray's agree (CrackleArray binds an
@@ -106,6 +116,10 @@ CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
 #   pins:      [ckl, out]: out receives compress(volume, allow_pins=True)
 #   stats:     [ckl, npz]: numpy label statistics of the volume
 #   cutouts:   [ckl, key, npy]: the decoded volume of ckl [np.s_[key]]
+#   make1024:  [seed, flat, pins, npy, npz]: a blocky 1024^2 x 8 volume
+#              made from the seed (blocky_1024), compressed flat and with
+#              pins, each stream decompressed and checked against it; npy
+#              receives the volume as (sz, sy*sx), npz its statistics
 # Each step's end is logged to stderr with the seconds since the start.
 # The oracle runs the port's host engine only: flat streams through the
 # native stream decoder, pins streams through the numpy loop.
@@ -192,6 +206,26 @@ if "stats" in spec:
 for src, key, dst in spec.get("cutouts", []):
   np.save(dst, vols[src][eval(f"np.s_[{key}]")])
   done(f"cutout [{key}]")
+if "make1024" in spec:
+  seed, flat, pins, npy, npz = spec["make1024"]
+  rng = np.random.RandomState(seed)
+  blocks = rng.randint(0, 40, (17, 17, 8)).astype(np.uint32)
+  vol = np.repeat(np.repeat(blocks, 64, 0), 64, 1)
+  for z in range(8):
+    vol[:, :, z] = np.roll(vol[:, :, z], (5 * z, 3 * z), (0, 1))
+  vol = np.asfortranarray(vol[:1024, :1024])
+  for dst, allow in ((flat, False), (pins, True)):
+    binary = codec.compress(vol, allow_pins=allow)
+    if codec.header(binary).label_format != (2 if allow else 0):
+      sys.exit(f"the 1024^2 compress (allow_pins={allow}) chose another "
+               "label format")
+    if not np.array_equal(codec.decompress(binary), vol):
+      sys.exit(f"the 1024^2 stream (allow_pins={allow}) does not round-trip")
+    with open(dst, "wb") as f:
+      f.write(binary)
+  np.save(npy, np.ascontiguousarray(vol.transpose(2, 1, 0)).reshape(8, -1))
+  np.savez(npz, **label_stats(vol))
+  done("1024^2 x 8 flat and pins streams")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "crackle_tpu")]
 if loaded:
   sys.exit(f"the oracle imported the reference: {loaded}")
@@ -353,11 +387,14 @@ def start_oracle(tmp):
   out = {name: os.path.join(tmp, f"{name}.npy") for name in
          ("512", "u64", "256", "mkv", "pins256")}
   out["pins512"] = os.path.join(tmp, "pins512.ckl")
+  out["1024"] = [os.path.join(tmp, f) for f in (
+    "flat1024.ckl", "pins1024.ckl", "vol1024.npy", "stats1024.npz")]
   out["stats"] = os.path.join(tmp, "stats512.npz")
   out["cutouts"] = [os.path.join(tmp, f"cut{i}.npy")
                     for i in range(len(CUTOUTS))]
   specs = [
-    {"decode": [[VOL512, None]], "pins": [VOL512, out["pins512"]]},
+    {"decode": [[VOL512, None]], "pins": [VOL512, out["pins512"]],
+     "make1024": [SEED_1024] + out["1024"]},
     {"decode": [[VOL512, out["512"]], [VOLU64, out["u64"]],
                 [VOL256, out["256"]], [VOLMKV, out["mkv"]],
                 [VOLPINS, out["pins256"]]],
@@ -391,20 +428,19 @@ def compare_kernels(binary, z1, dev, tag, errs):
   sx, sy = head.sx, head.sy
   perm = head.crack_format == ct.CrackFormat.PERMISSIBLE
 
-  k, c = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  kp, cp = replay.replay_keys_plain(t["packed"], t["nbytes"],
-                                    t["n_chains"])
-  sk, skp = torch.sort(k, 1).values, torch.sort(kp, 1).values
-  e = max(require_equal(f"{tag} keys", k, kp),
-          require_equal(f"{tag} sorted keys", sk, skp),
-          require_equal(f"{tag} cls", c, cp))
+  ev, c, dr = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  evp, cp, drp = replay.replay_keys_plain(t["packed"], t["nbytes"],
+                                          t["n_chains"])
+  e = max(require_equal(f"{tag} event words", ev, evp),
+          require_equal(f"{tag} cls", c, cp),
+          require_equal(f"{tag} depth ranges", dr, drp))
   errs["replay_keys"] = max(errs["replay_keys"], e)
 
-  ids = replay.replay_positions(skp, cp, t["nodes"], sx, sy)
-  idsp = replay.replay_positions_plain(skp, cp, t["nodes"], sx, sy)
-  e = require_equal(f"{tag} edge ids (sets per slice)",
-                    torch.sort(ids, 1).values, torch.sort(idsp, 1).values)
-  errs["replay_positions"] = max(errs["replay_positions"], e)
+  ids = replay.replay_positions(evp, cp, drp, t["nodes"], sx, sy)
+  idsp = replay.replay_positions_plain(evp, cp, drp, t["nodes"], sx, sy)
+  errs["replay_positions"] = max(errs["replay_positions"], require_equal(
+    f"{tag} edge ids", ids, idsp))
+  skp = replay.sorted_keys(evp, cp)
 
   dense = replay.cancel_sums(skp)
   densep = replay.cancel_sums_plain(skp)
@@ -465,7 +501,7 @@ def compare_kernels(binary, z1, dev, tag, errs):
     f"{tag} slice_stats", stats.slice_stats(ccp, sx, sy, cap_s),
     stats.slice_stats_plain(ccp, sx, sy, cap_s)))
   return (t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
-          tablesp)
+          tablesp, evp, drp)
 
 
 def snake_vcg(B, sy, sx):
@@ -545,7 +581,7 @@ def slice_stats_io(cc, cap_n):
 
 
 def kernel_io(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
-              tablesp):
+              tablesp, evp, drp):
   """name -> (bytes, elements) of each kernel on these inputs: each
   input read once and each output written once; where the work depends
   on the data (the close records a compaction moves), only what these
@@ -555,9 +591,10 @@ def kernel_io(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
   K = t["T"].shape[1]
   kept = int((tablesp[0] < CAP).sum())
   return {
-    "replay_keys": (nbytes_of(t["packed"], t["nbytes"], t["n_chains"])
-                    + B * CAP * (8 + 4), B * CAP),
-    "replay_positions": (nbytes_of(skp, cp, t["nodes"], idsp), B * CAP),
+    "replay_keys": (nbytes_of(t["packed"], t["nbytes"], t["n_chains"], evp,
+                              cp, drp), B * CAP),
+    "replay_positions": (nbytes_of(evp, cp, drp, t["nodes"], idsp),
+                         B * CAP),
     "paint_vcg": (nbytes_of(idsp, vp), B * CAP + npx),
     "ccl_paint": (nbytes_of(vp, t["T"]) + npx * 4 * (1 + K) + B * 4, npx),
     "ccl_min": (nbytes_of(vp) + 2 * npx * 4, npx),
@@ -592,10 +629,9 @@ def full_io(s):
   """kernel_io of the whole flat stream (B = sz): each stage's inputs
   and outputs made once by the kernels, and only their sizes kept."""
   h = s.head
-  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  skeys = torch.sort(keys, 1).values
-  del keys
-  ids = replay.replay_positions(skeys, cls, s.nodes, h.sx, h.sy)
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  skeys = replay.sorted_keys(ev, cls)
+  ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
   vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
   cc, N, _ = ccl.ccl_paint(vcg, s.T)
   L, tgt = ccl.ccl_min(vcg)
@@ -608,7 +644,35 @@ def full_io(s):
   t = {"packed": s.packed, "nbytes": s.nbytes, "n_chains": s.n_chains,
        "nodes": s.nodes, "T": s.T}
   return kernel_io(t, skeys, cls, ids, vcg, L, roots, cc, cap2, dense,
-                   tables)
+                   tables, ev, dr)
+
+
+class SortCount:
+  """Counts the calls of torch.sort and of replay.sorted_keys (the
+  compact path's rebuilt keys) while it is entered."""
+
+  def __enter__(self):
+    self.n = {"torch.sort": 0, "sorted_keys": 0}
+    self._sort, self._keys = torch.sort, replay.sorted_keys
+
+    def sort(*a, **k):
+      self.n["torch.sort"] += 1
+      return self._sort(*a, **k)
+
+    def keys(*a, **k):
+      self.n["sorted_keys"] += 1
+      return self._keys(*a, **k)
+
+    torch.sort, replay.sorted_keys = sort, keys
+    return self
+
+  def __exit__(self, *exc):
+    torch.sort, replay.sorted_keys = self._sort, self._keys
+
+  def require_none(self, path):
+    if any(self.n.values()):
+      raise AssertionError(f"the {path} path sorted: {self.n}")
+    return f"{path}-path calls of torch.sort and sorted_keys: {self.n}"
 
 
 def check_path(name, launches):
@@ -677,9 +741,9 @@ def run(dev, card, kind, oracles, paths, t_or):
                           dev)
   replay.TILE = 64
   try:
-    k, c = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-    sk = torch.sort(k, 1).values
-    ids = replay.replay_positions(sk, c, t["nodes"], sx, sy)
+    ev, c, dr = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+    sk = replay.sorted_keys(ev, c)
+    ids = replay.replay_positions(ev, c, dr, t["nodes"], sx, sy)
     idc = replay.replay_positions_compact(c, replay.compact_closes(
       replay.cancel_sums(sk), replay.close_cap(sk.shape[1],
                                                t["nodes"].shape[1])),
@@ -688,6 +752,17 @@ def run(dev, card, kind, oracles, paths, t_or):
     replay.TILE = 1024
   require_equal("tile-64 vcg", replay.paint_vcg(ids, sx, sy, perm), want)
   require_equal("tile-64 compact edge ids", idc, ids)
+  # the depth table in the scratch tensor for each slice whose depth
+  # range passes a 1-entry shared table
+  table, replay.DEPTH_TABLE = replay.DEPTH_TABLE, 1
+  try:
+    if int((dr[:, 1] - dr[:, 0]).max()) < 1:
+      raise AssertionError("no slice's depth range passes 1 entry")
+    ids4 = replay.replay_positions(ev, c, dr, t["nodes"], sx, sy)
+  finally:
+    replay.DEPTH_TABLE = table
+  errs["replay_positions"] = max(errs["replay_positions"], require_equal(
+    "scratch-table edge ids", ids4, ids))
   # CCL tile seams: a 64-pixel tile on the 256^2 VCG; a snake through
   # every tile (N = 1) and a checkerboard, whose VCG links nothing
   # (N = n), at 512^2
@@ -700,7 +775,8 @@ def run(dev, card, kind, oracles, paths, t_or):
     errs["ccl_paint"] = max(errs["ccl_paint"], e)
     errs["ccl_min"] = max(errs["ccl_min"], e)
   say(3, f"kernels bit-equal to their plain versions on 512^3[:32], "
-         f"256^2x128, u64[:32], pins 256^2x128, the replay at tile 64, "
+         f"256^2x128, u64[:32], pins 256^2x128, the replay at tile 64 and "
+         f"with its depth table in the scratch tensor, "
          f"the CCL at 64-pixel tiles and on a 512^2 snake and "
          f"checkerboard, "
          f"ccl_min -> roots_from_tgt -> plant equal to ccl_paint and "
@@ -717,7 +793,7 @@ def run(dev, card, kind, oracles, paths, t_or):
   # kernel, plain and library-call times at the 512^3 slice shapes
   # (first 32 slices), and each kernel's bound on the same inputs
   (t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
-   tablesp) = sub
+   tablesp, evp, drp) = sub
   Tt = t["T"]
   ccap = tablesp.shape[2]
   args = {
@@ -725,8 +801,8 @@ def run(dev, card, kind, oracles, paths, t_or):
       t["packed"], t["nbytes"], t["n_chains"]), lambda: replay.
       replay_keys_plain(t["packed"], t["nbytes"], t["n_chains"])),
     "replay_positions": (lambda: replay.replay_positions(
-      skp, cp, t["nodes"], sx, sy), lambda: replay.replay_positions_plain(
-        skp, cp, t["nodes"], sx, sy)),
+      evp, cp, drp, t["nodes"], sx, sy), lambda: replay.
+      replay_positions_plain(evp, cp, drp, t["nodes"], sx, sy)),
     "paint_vcg": (lambda: replay.paint_vcg(idsp, sx, sy, perm),
                   lambda: replay.paint_vcg_plain(idsp, sx, sy, perm)),
     "ccl_paint": (lambda: ccl.ccl_paint(vp, Tt),
@@ -767,8 +843,10 @@ def run(dev, card, kind, oracles, paths, t_or):
   eager["scatter_"] = cuda_ms(lambda: empty.scatter_(2, tgt, densep[1:]),
                               10)
   bounds = {name: bound(name, *io) for name, io in kernel_io(
-    t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp).items()}
+    t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp, evp,
+    drp).items()}
   del sub, args, t, skp, cp, idsp, vp, Lp, roots, ccp, densep, tablesp
+  del evp, drp
   del dest, tgt, empty
 
   launches = {}
@@ -784,8 +862,9 @@ def run(dev, card, kind, oracles, paths, t_or):
   torch.cuda.synchronize()
   t_up = time.perf_counter() - t0
   t0 = time.perf_counter()
-  labels, cc, N = stream.decode_window(0, 512, check_crcs=True)
-  torch.cuda.synchronize()
+  with SortCount() as sorts:
+    labels, cc, N = stream.decode_window(0, 512, check_crcs=True)
+    torch.cuda.synchronize()
   t_dec = time.perf_counter() - t0
   launches["flat"] = dict(ct.LAUNCHES)
   head = stream.head
@@ -843,6 +922,7 @@ def run(dev, card, kind, oracles, paths, t_or):
   # 8: launches, steady state, stages, busy share
   say(8, f"flat-path launches {launches['flat']}")
   check_path("flat", launches["flat"])
+  say(8, sorts.require_none("flat"))
   for tag, s in [("512^3", stream)] + list(small.items()):
     steady(8, tag, s)
   stages = stage_times(stream)
@@ -873,6 +953,7 @@ def run(dev, card, kind, oracles, paths, t_or):
   for name in ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"):
     full[name] = (512, stages[name], bound(name, *io512[name])[2])
     say(8, "512^3 stage " + share_line(name, stages[name], io512[name], 512))
+  say(8, replay_stage_line(stream, stages))
   say(8, busy_share(stream))
 
   # 9: the compact-cancel path on the same volume
@@ -882,8 +963,9 @@ def run(dev, card, kind, oracles, paths, t_or):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cs = ct.upload_stream(b512, dev)
-    labels, _, _ = cs.decode_window(0, 512, check_crcs=True)
-    torch.cuda.synchronize()
+    with SortCount() as sorts:
+      labels, _, _ = cs.decode_window(0, 512, check_crcs=True)
+      torch.cuda.synchronize()
     t_dec = time.perf_counter() - t0
     launches["compact"] = dict(ct.LAUNCHES)
     require_labels("compact 512^3", labels, want)
@@ -891,7 +973,10 @@ def run(dev, card, kind, oracles, paths, t_or):
     say(9, f"compact-cancel path: upload_stream + first decode_window(0, "
            f"512, check_crcs=True) {t_dec * 1e3:.3f} ms, labels bit-equal "
            f"to the host decoder")
-    say(9, f"compact-path launches {launches['compact']}")
+    say(9, f"compact-path launches {launches['compact']}; calls "
+           f"{sorts.n}")
+    if not sorts.n["sorted_keys"]:
+      raise AssertionError("the compact path did not rebuild the keys")
     check_path("compact", launches["compact"])
     if launches["compact"]["replay_positions"]:
       raise AssertionError("the compact path launched replay_positions")
@@ -902,7 +987,8 @@ def run(dev, card, kind, oracles, paths, t_or):
   ctimes = compact_stage_times(stream)
   say(9, "512^3 compact stage ms at B=512 (CUDA events): " + ", ".join(
     f"{k} {v:.3f}" for k, v in ctimes.items())
-      + f"; cancel_sums + compact_closes + replay_positions_compact "
+      + f"; sorted_keys + cancel_sums + compact_closes + "
+        f"replay_positions_compact "
         f"{sum(v for k, v in ctimes.items() if k != 'replay_positions'):.3f}"
         f" against replay_positions {ctimes['replay_positions']:.3f}")
   for name in ("cancel_sums", "compact_closes", "replay_positions_compact"):
@@ -924,8 +1010,9 @@ def run(dev, card, kind, oracles, paths, t_or):
   torch.cuda.synchronize()
   t_up = time.perf_counter() - t0
   t0 = time.perf_counter()
-  labels, _, _ = ps.decode_window(0, 512, check_crcs=True)
-  torch.cuda.synchronize()
+  with SortCount() as sorts:
+    labels, _, _ = ps.decode_window(0, 512, check_crcs=True)
+    torch.cuda.synchronize()
   t_dec = time.perf_counter() - t0
   launches["pins"] = dict(ct.LAUNCHES)
   require_labels("pins 512^3", labels, want)
@@ -940,6 +1027,7 @@ def run(dev, card, kind, oracles, paths, t_or):
          f"decode_window(100, 164) bit-equal to the volume")
   say(10, f"pins-path launches {launches['pins']}")
   check_path("pins", launches["pins"])
+  say(10, sorts.require_none("pins"))
   p256 = ct.upload_stream(bpins, dev)
   lab, _, _ = p256.decode_window(0, p256.head.sz, check_crcs=True)
   require_labels("pins 256^2x128", lab, np.load(paths["pins256"]))
@@ -1028,6 +1116,9 @@ def run(dev, card, kind, oracles, paths, t_or):
     f"{tag}[{key}]" for tag, _, key in CUTOUTS)
       + "; check_crcs() passed on each array")
 
+  # 13: slices past one block's shared memory
+  phase_1024(dev, paths["1024"], errs)
+
   check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
@@ -1047,6 +1138,48 @@ def run(dev, card, kind, oracles, paths, t_or):
   print(json.dumps({"ok": True, "device": {
     "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
   return 0
+
+
+def phase_1024(dev, paths, errs):
+  """The 1024^2 x 8 flat and pins streams, decoded with the CRC gate
+  against the host oracle (the paint in bands), the paint kernel
+  against its plain version on their edge ids, and the flat stream's
+  analytics against the numpy statistics."""
+  flat, pins, npy, npz = paths
+  want = np.load(npy)
+  P = replay.paint_band_px(1024, 1024)
+  for tag, binary in (("flat", read(flat)), ("pins", read(pins))):
+    s = ct.upload_stream(binary, dev)
+    if s is None:
+      raise AssertionError(f"upload_stream declined the 1024^2 {tag} stream")
+    ct.reset_launches()
+    labels, _, _ = s.decode_window(0, 8, check_crcs=True)
+    torch.cuda.synchronize()
+    require_labels(f"1024^2 {tag}", labels, want)
+    if not ct.LAUNCHES["paint_vcg"]:
+      raise AssertionError("paint_vcg not launched on the 1024^2 decode")
+    h = s.head
+    ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+    ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
+    errs["paint_vcg"] = max(errs["paint_vcg"], require_equal(
+      f"1024^2 {tag} vcg", replay.paint_vcg(ids, h.sx, h.sy, s.permissible),
+      replay.paint_vcg_plain(ids, h.sx, h.sy, s.permissible)))
+    say(13, f"1024^2 x 8 {tag} ({len(binary)} bytes, CAP "
+            f"{s.packed.shape[1] * 4}): decode_window(0, 8, check_crcs=True) "
+            f"bit-equal to the host decoder, the paint in "
+            f"{-(-1024 * 1024 // P)} bands of {P} pixels bit-equal to its "
+            f"plain version; launches {dict(ct.LAUNCHES)}")
+  orc = np.load(npz)
+  ct.reset_launches()
+  vc = ct.voxel_counts(read(flat), device=dev)
+  cen = ct.centroids(read(flat), device=dev)
+  bb = ct.bounding_boxes(read(flat), no_slice_conversion=True, device=dev)
+  if ct.LAUNCHES["slice_stats"] != 3:
+    raise AssertionError(f"1024^2 analytics launches {dict(ct.LAUNCHES)}")
+  check_analytics(orc, vc, cen, bb)
+  say(13, f"1024^2 x 8 analytics of {len(orc['uniq'])} labels on the card "
+          f"(slice_stats launched 3 times): voxel_counts and bounding_boxes "
+          f"equal to the numpy oracle, centroids within rtol 1e-12")
 
 
 def check_analytics(orc, vc, cen, bb):
@@ -1071,22 +1204,42 @@ def check_analytics(orc, vc, cen, bb):
 def stage_times(s):
   """Device ms of each stage of one full-volume flat decode."""
   h = s.head
-  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  skeys = torch.sort(keys, 1).values
-  ids = replay.replay_positions(skeys, cls, s.nodes, h.sx, h.sy)
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
   vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
   cc, _, _ = ccl.ccl_paint(vcg, s.T)
   return {
     "replay_keys": cuda_ms(lambda: replay.replay_keys(
       s.packed, s.nbytes, s.n_chains), 3),
-    "sort": cuda_ms(lambda: torch.sort(keys, 1), 3),
     "replay_positions": cuda_ms(lambda: replay.replay_positions(
-      skeys, cls, s.nodes, h.sx, h.sy), 3),
+      ev, cls, dr, s.nodes, h.sx, h.sy), 3),
     "paint_vcg": cuda_ms(lambda: replay.paint_vcg(
       ids, h.sx, h.sy, s.permissible), 3),
     "ccl_paint": cuda_ms(lambda: ccl.ccl_paint(vcg, s.T), 3),
     "crc32c": cuda_ms(lambda: crc32c.crc32c_rows(cc), 3),
   }
+
+
+def replay_stage_line(s, stages):
+  """The replay stage (packed diffs -> edge ids) at B = sz against one
+  yardstick for both designs: the whole stage's bound (packed, nbytes,
+  n_chains and nodes read once, the ids written once; the two kernels'
+  operation floors), and the torch.sort of the int64 keys that the
+  parent design ran between its kernels, timed on the same events."""
+  h = s.head
+  B, CAP = s.packed.shape[0], s.packed.shape[1] * 4
+  ev, cls, _ = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  skeys = replay.sorted_keys(ev, cls)
+  sort_ms = cuda_ms(lambda: torch.sort(skeys, 1), 3)
+  nb = nbytes_of(s.packed, s.nbytes, s.n_chains, s.nodes) + B * CAP * 4
+  ops = (OPS_PER["replay_keys"] + OPS_PER["replay_positions"]) * B * CAP
+  bms = 1e3 * max(nb / MEM_BYTES_PER_S, ops / OPS_PER_S)
+  ms = stages["replay_keys"] + stages["replay_positions"]
+  return (f"{h.sx}x{h.sy} replay stage at B={B}: replay_keys + "
+          f"replay_positions {ms:.4f} ms against the whole stage's bound "
+          f"{bms * 1e3:.2f} us ({nb} bytes, {ops} ops; {100 * bms / ms:.1f}%"
+          f" of it); the int64 key sort of the sort-based design on the "
+          f"same events {sort_ms:.4f} ms (not on the path)")
 
 
 CCL_PASSES = ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank", "ccl_fill")
@@ -1098,9 +1251,8 @@ def ccl_pass_times(s, tile):
   ccl.TILE_PIX = tile, summed by kernel name from torch.profiler's
   device events; None where the profiler recorded no pass."""
   h = s.head
-  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  ids = replay.replay_positions(torch.sort(keys, 1).values, cls, s.nodes,
-                                h.sx, h.sy)
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
   vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
   out = {}
   default = ccl.TILE_PIX
@@ -1116,10 +1268,11 @@ def ccl_pass_times(s, tile):
 
 def compact_stage_times(s):
   """Device ms of the compact-cancel stages of one full-volume decode,
-  and of replay_positions, which they replace, on the same keys."""
+  and of replay_positions, which they replace, on the same events, and
+  of the sort of the keys that the compact path adds (sorted_keys)."""
   h = s.head
-  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  skeys = torch.sort(keys, 1).values
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  skeys = replay.sorted_keys(ev, cls)
   dense = replay.cancel_sums(skeys)
   ccap = replay.close_cap(skeys.shape[1], s.nodes.shape[1])
   tables = replay.compact_closes(dense, ccap)
@@ -1131,7 +1284,8 @@ def compact_stage_times(s):
       lambda: replay.replay_positions_compact(cls, tables, s.nodes, h.sx,
                                               h.sy), 3),
     "replay_positions": cuda_ms(lambda: replay.replay_positions(
-      skeys, cls, s.nodes, h.sx, h.sy), 3),
+      ev, cls, dr, s.nodes, h.sx, h.sy), 3),
+    "sorted_keys": cuda_ms(lambda: replay.sorted_keys(ev, cls), 3),
   }
 
 
@@ -1143,9 +1297,8 @@ def pins_stage_times(s):
   pl_, pb_, si_, sl_, bg32, cap_n = s.pins
   B = h.sz
   cap2 = ccl._pow2_cap(cap_n)
-  keys, cls = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  skeys = torch.sort(keys, 1).values
-  ids = replay.replay_positions(skeys, cls, s.nodes, h.sx, h.sy)
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
   vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
   L, tgt = ccl.ccl_min(vcg)
   roots, _ = ccl.roots_from_tgt(tgt, cap2)
@@ -1169,9 +1322,8 @@ def pins_stage_times(s):
   return {
     "replay_keys": cuda_ms(lambda: replay.replay_keys(
       s.packed, s.nbytes, s.n_chains), 3),
-    "sort": cuda_ms(lambda: torch.sort(keys, 1), 3),
     "replay_positions": cuda_ms(lambda: replay.replay_positions(
-      skeys, cls, s.nodes, h.sx, h.sy), 3),
+      ev, cls, dr, s.nodes, h.sx, h.sy), 3),
     "paint_vcg": cuda_ms(lambda: replay.paint_vcg(
       ids, h.sx, h.sy, s.permissible), 3),
     "ccl_min": cuda_ms(lambda: ccl.ccl_min(vcg), 3),

@@ -55,6 +55,39 @@ __device__ T block_scan(T v, T unit, Op op, T* warp, T* total) {
   return v;
 }
 
+// Exclusive scan over the block in thread order: thread t gets the scan
+// of threads [0, t) (`unit` for thread 0), and `total` (optional) that
+// of the whole block. Same rules as block_scan.
+template <class T, class Op>
+__device__ T block_scan_excl(T v, T unit, Op op, T* warp, T* total) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    T n = __shfl_up_sync(FULL_MASK, v, o);
+    if (lane >= o) v = op(n, v);
+  }
+  T ex = __shfl_up_sync(FULL_MASK, v, 1);
+  if (lane == 31) warp[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    T w = lane < nw ? warp[lane] : unit;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      T n = __shfl_up_sync(FULL_MASK, w, o);
+      if (lane >= o) w = op(n, w);
+    }
+    if (lane < nw) warp[lane] = w;
+  }
+  __syncthreads();
+  const T pre = wid > 0 ? warp[wid - 1] : unit;
+  ex = lane == 0 ? pre : op(pre, ex);
+  if (total) *total = warp[nw - 1];
+  __syncthreads();  // warp[] is reused by the next scan
+  return ex;
+}
+
 // out[tid] = v[tid - 1]; thread 0 gets `carry`. `buf` is blockDim.x
 // elements of shared scratch; every thread of the block must call it.
 __device__ __forceinline__ int shift_prev(int v, int carry, int* buf) {

@@ -1,10 +1,11 @@
 // The compact-cancel replay on Hopper: sorted keys -> per-close cancel
 // sums -> compact close tables -> edge ids.
 //
-// An alternative to replay_positions (replay.cu) for the cancels: in
-// place of one atomic +-1 per move at its scope close, each close gets
-// the sum of the moves of its run, and the replay adds the sums at the
-// close positions. Each move's next close is the close whose run holds
+// An alternative to replay_positions (replay.cu) for the cancels, over
+// the reference's sorted (depth, position) keys (replay.sorted_keys
+// rebuilds them from the event words): each close gets the sum of the
+// moves of its run, and the replay adds the sums at the close
+// positions. Each move's next close is the close whose run holds
 // it, so the edge ids equal replay_positions' element by element; that
 // equality, not the TPU's means, is the contract.
 //

@@ -1,17 +1,20 @@
 // Crack-code replay on Hopper: packed 2-bit moves -> 4-bit VCG.
 //
-// Three kernels, one block per slice, with a torch.sort of the keys
-// between the first two. Semantics are those of
+// Three kernels. Semantics are those of
 // crackle_tpu/kernels/decode.py:_decode_vcg_batch; the stage outputs
-// (keys, cls, edge ids, VCG) are the contract, not the TPU's means.
+// (event words, cls, edge ids, VCG) are the contract, not the TPU's
+// means. The reference groups a slice's events by depth with a global
+// sort of (depth, position) keys, because on the TPU sorts and scans
+// are cheap and scalar gathers and scatters are not. On this card a
+// table lookup in shared memory is one load, and the sort cost four
+// times the two replay kernels together, so replay_positions walks the
+// events forward with a per-depth table instead and no sort runs.
 //
-// What bounds them on this card: every stage is a handful of integer
-// operations per codepoint over (B, CAP) arrays (CAP = 32768 for a
-// 512^2 slice), so they are bound by the serial chain of block-wide
-// scans per tile (barriers), not by bytes or arithmetic. The design
-// keeps one tile of blockDim codepoints per step, carries the scan
-// state across tiles in registers, and does each scatter with plain
-// atomics, where the TPU needed one-hot matmuls and sorted windows.
+// What bounds them on this card: a handful of integer operations per
+// codepoint over (B, CAP) arrays (CAP = 32768 for a 512^2 slice). Bytes
+// would allow some 40-70 us at B = 512; the kernels are held back by
+// serial dependences (the block scans of replay_keys, the walk of
+// replay_positions), which the designs below keep short.
 #include "replay.cuh"
 
 using namespace ckl;
@@ -22,147 +25,427 @@ __device__ __forceinline__ int diff_at(const uint8_t* pk, int i) {
   return (pk[i >> 2] >> (2 * (i & 3))) & 3;
 }
 
-// Kernel 1. Replaces replay_pallas._keys_kernel and
-// replay_big._keys_kernel_big: 2-bit diffs -> mod-4 cumsum codepoints
-// -> move/branch/terminate classes, chain ids and scope depth -> one
-// int64 sort key per codepoint, (depth*CAP + pos) << 3 | close << 2 |
-// cps (INT64_MAX when inactive), and a cls word cps | move << 2 |
-// chain << 3. Tiles of blockDim codepoints carry the eight values of
-// replay_big._carr_init; the pair-second state of the codepoint after
-// a tile follows from s[i+1] = r[i+1] & ~s[i], so no lookahead row.
-__global__ void replay_keys_kernel(const uint8_t* __restrict__ packed,
-                                   const int* __restrict__ nbytes,
-                                   const int* __restrict__ n_chains,
-                                   long long* __restrict__ keys,
-                                   int* __restrict__ cls, int CAP_B) {
+// ---------------------------------------------------------------------------
+// Kernel 1: replay_keys
+// ---------------------------------------------------------------------------
+
+constexpr int KEYS_PER = 32;  // codepoints a thread takes: 8 bytes, one load
+
+// The classification of one codepoint from its diff d and the next
+// codepoint's dn (both 0 past the stream's end), carrying the mod-4
+// codepoint, the previous reversal flag and the reversal run's start.
+// r(i) = (cps(i) ^ cps(i-1)) == 2 is d(i) == 2 for i >= 1, so it needs
+// no carry; the pair-second parity needs the run start, a max.
+struct Classify {
+  int cps, rp, run_start;
+  int second, is_term, is_branch, is_move;
+  __device__ __forceinline__ void step(int i, int d, int dn, bool inr) {
+    cps = (cps + d) & 3;
+    const int r = i >= 1 && d == 2;
+    if (r && !rp) run_start = i;
+    rp = r;
+    second = r && (((i - run_start) & 1) == 0);
+    const int cps1 = (cps + dn) & 3;
+    const int pair_first = dn == 2 && !second;
+    const int term_pair = cps1 == 0 || cps1 == 3;
+    is_term = pair_first && term_pair;
+    is_branch = pair_first && !term_pair;
+    is_move = !pair_first && !second && inr;
+  }
+};
+
+// Replaces replay_pallas._keys_kernel and replay_big._keys_kernel_big:
+// 2-bit diffs -> mod-4 cumsum codepoints -> move/branch/terminate
+// classes, chain ids and scope depth -> one int32 event word per
+// codepoint, depth << 2 | close << 1 | 1 where active (0 elsewhere), a
+// cls word cps | move << 2 | chain << 3, and the slice's least and
+// largest active depth (drange, (0, -1) without events).
+//
+// One block a slice; each thread owns KEYS_PER consecutive codepoints
+// of a block step (blockDim * KEYS_PER codepoints; one step at CAP
+// 32768 and 1024 threads). The carries are associative once taken in
+// order, so each is one block scan of per-thread values: the codepoint
+// (a sum mod 4) and the run start (a max), read off the thread's 8
+// bytes with bit operations; c (a sum) and its prefix minimum (a min of
+// each thread's c_in + local minimum), from a serial pass over the
+// thread's run; the end count (a sum) and the previous codepoint's
+// is_end (the last set value), from that pass's minima in closed form.
+// Six block scans a step, where one codepoint a thread took five scans
+// and four shifts a 1024-codepoint tile (about 800 barriers a slice);
+// a second serial pass writes the outputs. The outputs go out
+// through shared memory, eight values a thread per round, so that each
+// warp store writes whole 32-byte sectors.
+__global__ void __launch_bounds__(1024)
+replay_keys_kernel(const uint8_t* __restrict__ packed,
+                   const int* __restrict__ nbytes,
+                   const int* __restrict__ n_chains, int* __restrict__ ev,
+                   int* __restrict__ cls, int* __restrict__ drange, int CAP_B,
+                   int vec) {
   __shared__ int warp[MAX_WARPS];
-  __shared__ int buf[1024];
-  __shared__ int carry[8];
+  __shared__ int xbuf[MAX_WARPS][32 * 9];
   const int b = blockIdx.x;
-  const int T = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
   const int CAP = CAP_B * 4;
   const uint8_t* pk = packed + (size_t)b * CAP_B;
-  long long* kout = keys + (size_t)b * CAP;
+  int* eout = ev + (size_t)b * CAP;
   int* cout = cls + (size_t)b * CAP;
   const int n_cps = nbytes[b] * 4;
+  const int n_eff = min(n_cps, CAP);
   const int nch = n_chains[b];
   const int chmax = max(nch - 1, 0);
+  const int step = blockDim.x * KEYS_PER;
 
-  int cps_c = 0, prev_c = 255, r_c = 0, rs_c = -1;
-  int c_c = 0, cm_c = INT_MAX, ie_c = 0, ec_c = 0;
-  for (int t0 = 0; t0 < CAP; t0 += T) {
-    const int i = t0 + threadIdx.x;
-    const bool inr = i < n_cps;
-    int tot;
-    const int d = inr ? diff_at(pk, i) : 0;
-    const int cps = (block_scan(d, 0, Add(), warp, &tot) + cps_c) & 3;
-    const int prev = shift_prev(cps, prev_c, buf);
-    const int r = inr && ((cps ^ prev) == 2);
-    const int r_prev = shift_prev(r, r_c, buf);
-    const int rs = (r && !r_prev) ? i : -1;
-    const int run_start =
-        max(block_scan(r ? rs : -1, INT_MIN, Max(), warp, &tot), rs_c);
-    const int second = r && (((i - run_start) & 1) == 0);
-
-    const bool inr1 = i + 1 < n_cps;
-    const int cps1 = (cps + (inr1 ? diff_at(pk, i + 1) : 0)) & 3;
-    const int r1 = inr1 && ((cps1 ^ cps) == 2);
-    const int pair_first = r1 && !second;
-    const int term_pair = cps1 == 0 || cps1 == 3;
-    const int is_term = pair_first && term_pair;
-    const int is_branch = pair_first && !term_pair;
-    const int is_move = !pair_first && !second && inr;
-
-    const int c = block_scan(is_branch - is_term, 0, Add(), warp, &tot) + c_c;
-    const int cm = min(block_scan(c, INT_MAX, Min(), warp, &tot), cm_c);
-    const int runmin = min(shift_prev(cm, cm_c, buf), 0);
-    const int is_end = inr && (c < runmin);
-    const int end_cum = block_scan(is_end, 0, Add(), warp, &tot) + ec_c;
-    const int cnt_before = end_cum - is_end;
-    const int chain_of = min(max(cnt_before, 0), chmax);
-    const int prev_is_end = shift_prev(is_end, ie_c, buf);
-    const int valid = (cnt_before < nch) || prev_is_end;
-
-    if (i < CAP) {
-      const long long depth = (long long)c + chain_of + 1 + is_term;
-      const int close = is_term && valid;
-      const int active = valid && (is_move || is_term);
-      kout[i] = active ? (((depth * CAP + i) * 8) | (close << 2) | cps)
-                       : LLONG_MAX;
-      cout[i] = cps | ((is_move && valid) << 2) | (chain_of << 3);
+  int cps_c = 0, rs_c = -1, c_c = 0, cm_c = INT_MAX, ec_c = 0, ie_c = 0;
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int t0 = 0; t0 < CAP; t0 += step) {
+    const int i0 = t0 + threadIdx.x * KEYS_PER;
+    // this thread's diffs, 0 past the stream's end
+    unsigned long long w = 0;
+    const int byte0 = i0 >> 2;
+    if (vec && byte0 + 8 <= CAP_B) {
+      w = *(const unsigned long long*)(pk + byte0);
+    } else {
+      for (int k = 0; k < 8; ++k)
+        if (byte0 + k < CAP_B) w |= (unsigned long long)pk[byte0 + k] << (8 * k);
     }
-    if (threadIdx.x == T - 1) {
-      carry[0] = cps; carry[1] = r; carry[2] = run_start; carry[3] = c;
-      carry[4] = cm; carry[5] = is_end; carry[6] = end_cum;
-    }
-    __syncthreads();
-    cps_c = prev_c = carry[0]; r_c = carry[1]; rs_c = carry[2];
-    c_c = carry[3]; cm_c = carry[4]; ie_c = carry[5]; ec_c = carry[6];
-    __syncthreads();
-  }
-}
+    const int keep = min(max(n_eff - i0, 0), KEYS_PER);
+    if (keep < KEYS_PER) w &= (1ull << (2 * keep)) - 1;
+    const int d_next = i0 + KEYS_PER < n_eff ? diff_at(pk, i0 + KEYS_PER) : 0;
+    const int rp0 = i0 - 1 >= 1 && i0 - 1 < n_eff && diff_at(pk, i0 - 1) == 2;
+    auto d_at = [&](int j) {
+      return j < KEYS_PER ? (int)((w >> (2 * j)) & 3) : d_next;
+    };
 
-// Kernel 2. Replaces replay_pallas._replay_kernel and replay_big's
-// _scope_kernel and _replay_kernel_big. Over the sorted keys, a
-// reverse tiled scan finds each move's next close at the same depth;
-// the tile seam carries the scan value, and the depth-segment end
-// reads the next key itself, so a seam fakes no boundary. Each move
-// atomically adds its +-1 at that close into a (2, CAP) H/V cancel
-// buffer. After a barrier, replay_forward (replay.cuh) turns deltas,
-// cancels and chain bases into every move's edge id.
-__global__ void replay_positions_kernel(const long long* __restrict__ skeys,
-                                        const int* __restrict__ cls,
-                                        const int* __restrict__ nodes,
-                                        int* __restrict__ cancel,
-                                        int* __restrict__ ids, int CAP,
-                                        int CAP_CH, int sx, int sy) {
-  __shared__ int warp[MAX_WARPS];
-  const int b = blockIdx.x;
-  const int T = blockDim.x;
-  const long long* sk = skeys + (size_t)b * CAP;
-  int* can = cancel + (size_t)b * 2 * CAP;
-  const int logcap = 31 - __clz(CAP);
-  for (int i = threadIdx.x; i < 2 * CAP; i += T) can[i] = 0;
-  __syncthreads();
+    // the codepoint sum and the last reversal-run start, bitwise: bit
+    // 2j of t is r(i0 + j), d == 2
+    const unsigned long long E = 0x5555555555555555ull;
+    const int dsum = __popcll(w & E) + 2 * __popcll(w & (E << 1));
+    unsigned long long t = (w >> 1) & ~w & E;
+    if (i0 == 0) t &= ~1ull;  // r(0) = 0
+    const unsigned long long starts = t & ~((t << 2) | (unsigned long long)rp0);
+    const int rs_loc = starts ? i0 + (63 - __clzll(starts)) / 2 : -1;
+    int tot_d, tot_rs;
+    const int cps_in = (cps_c + block_scan_excl(dsum, 0, Add(), warp, &tot_d)) & 3;
+    const int rs_in = max(rs_c, block_scan_excl(rs_loc, -1, Max(), warp, &tot_rs));
 
-  int carry = -1;
-  const int ntile = (CAP + T - 1) / T;
-  for (int k = ntile - 1; k >= 0; --k) {
-    const int j = k * T + (T - 1 - threadIdx.x);  // reversed in the tile
-    int e = -1, cps = 0;
-    bool move = false;
-    if (j < CAP) {
-      const long long key = sk[j];
-      const bool inf = key == LLONG_MAX;
-      const bool close = !inf && ((key >> 2) & 1);
-      const long long body = key >> 3;
-      const long long depth = body >> logcap;
-      bool seg_last = inf || j == CAP - 1;
-      if (!seg_last) {
-        const long long nk = sk[j + 1];
-        seg_last = nk == LLONG_MAX || ((nk >> 3) >> logcap) != depth;
+    // pass 1: c, relative to the thread's start: its minimum, its first
+    // value c0, the minimum after it, its last value and the minimum
+    // before that
+    int c_rel = 0, min_rel = INT_MAX, c0 = 0, min_rest = INT_MAX;
+    int min_pre_last = INT_MAX;
+    {
+      Classify k{cps_in, rp0, rs_in};
+      for (int j = 0; j < KEYS_PER; ++j) {
+        k.step(i0 + j, d_at(j), d_at(j + 1), i0 + j < n_eff);
+        c_rel += k.is_branch - k.is_term;
+        if (j == 0) c0 = c_rel;
+        else min_rest = min(min_rest, c_rel);
+        if (j == KEYS_PER - 1) min_pre_last = min_rel;
+        min_rel = min(min_rel, c_rel);
       }
-      if (close || seg_last) e = close ? (int)(body & (CAP - 1)) : CAP;
-      move = !inf && !close;
-      cps = (int)(key & 3);
     }
-    int tot;
-    int nc = block_scan(e, -1, LastSet(), warp, &tot);
-    if (nc < 0) nc = carry;
-    carry = tot >= 0 ? tot : carry;
-    if (move && nc >= 0 && nc < CAP) {
-      const bool isV = cps == 0 || cps == 2;
-      atomicAdd(&can[(isV ? CAP : 0) + nc], (cps == 3 || cps == 0) ? 1 : -1);
+    int tot_c, tot_m;
+    const int c_in = c_c + block_scan_excl(c_rel, 0, Add(), warp, &tot_c);
+    const int cm_in = min(cm_c, block_scan_excl(c_in + min_rel, INT_MAX, Min(),
+                                                warp, &tot_m));
+
+    // chain ends, without a pass: is_end(i) is c(i) < min(cm(i-1), 0),
+    // that is c_rel(i) < min(X, the minimum of c_rel before i) with X =
+    // min(cm_in, 0) - c_in. c_rel moves in steps of at most 1, so after
+    // the first codepoint each new low below min(X, c0) is one end, and
+    // a codepoint past the stream's end (c_rel unchanged) is none.
+    const int X = min(cm_in, 0) - c_in;
+    const int e0 = i0 < n_eff && c0 < X;
+    const int ecnt = e0 + max(0, min(X, c0) - min_rest);
+    const int last_end = c_rel < min(X, min_pre_last);
+    int tot_e, tot_le;
+    const int ec_in = ec_c + block_scan_excl(ecnt, 0, Add(), warp, &tot_e);
+    const int le = block_scan_excl(last_end, -1, LastSet(), warp, &tot_le);
+
+    // pass 2: the outputs, eight codepoints a round
+    {
+      Classify k{cps_in, rp0, rs_in};
+      int c = c_in, cm = cm_in, end_cum = ec_in;
+      int prev_end = le >= 0 ? le : ie_c;
+      int* xb = xbuf[wid];
+      for (int r = 0; r < KEYS_PER / 8; ++r) {
+        int evr[8], clr[8];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int i = i0 + 8 * r + jj;
+          const bool inr = i < n_eff;
+          k.step(i, d_at(8 * r + jj), d_at(8 * r + jj + 1), inr);
+          c += k.is_branch - k.is_term;
+          const int is_end = inr && c < min(cm, 0);
+          cm = min(cm, c);
+          end_cum += is_end;
+          const int cnt_before = end_cum - is_end;
+          const int chain_of = min(max(cnt_before, 0), chmax);
+          const int valid = cnt_before < nch || prev_end;
+          prev_end = is_end;
+          const int depth = c + chain_of + 1 + k.is_term;
+          const int close = k.is_term && valid;
+          const int active = valid && (k.is_move || k.is_term);
+          if (active) {
+            lo = min(lo, depth);
+            hi = max(hi, depth);
+          }
+          evr[jj] = active ? (int)(((unsigned)depth << 2) | (close << 1) | 1) : 0;
+          clr[jj] = k.cps | ((k.is_move && valid) << 2) | (chain_of << 3);
+        }
+        // blocked to striped: lane l's values [8r, 8r + 8) -> 8 stores,
+        // each 4 runs of 8 consecutive ints across the warp
+        for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) xb[lane * 9 + jj] = pass ? clr[jj] : evr[jj];
+          __syncwarp();
+          int* out = pass ? cout : eout;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const int e = 32 * q + lane;
+            const int owner = e >> 3, o = e & 7;
+            const int i = t0 + (wid * 32 + owner) * KEYS_PER + 8 * r + o;
+            if (i < CAP) out[i] = xb[owner * 9 + o];
+          }
+          __syncwarp();
+        }
+      }
+    }
+    cps_c = (cps_c + tot_d) & 3;
+    rs_c = max(rs_c, tot_rs);
+    c_c += tot_c;
+    cm_c = min(cm_c, tot_m);
+    ec_c += tot_e;
+    ie_c = tot_le >= 0 ? tot_le : ie_c;
+  }
+  int glo, ghi;
+  block_scan(lo, INT_MAX, Min(), warp, &glo);
+  block_scan(hi, INT_MIN, Max(), warp, &ghi);
+  if (threadIdx.x == 0) {
+    drange[2 * b] = glo <= ghi ? glo : 0;
+    drange[2 * b + 1] = glo <= ghi ? ghi : -1;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2: replay_positions
+// ---------------------------------------------------------------------------
+
+// Replaces replay_pallas._replay_kernel and replay_big's _scope_kernel
+// and _replay_kernel_big. The reference's sorted definition reduces to:
+// each active move at position p and depth d takes its +-1 (H or V) at
+// the first active close q > p of depth d, and nothing if there is none.
+// So a forward walk over the positions keeps, per depth, the pending H
+// and V sums of the moves since that depth's last close: a close's
+// cancel is its depth's pending sum, which then resets to 0. Each
+// close's cancel is known when the walk reaches it, so the same walk
+// runs the 64-bit position scan (replay_forward's arithmetic) and writes
+// the edge ids: no sort, no cancel buffer in device memory, no atomics
+// on it.
+//
+// A table entry is an int2 {2 * h + closed, v} indexed by depth -
+// drange.lo: the pending sums, and whether the walk flushed that depth.
+
+// One warp step of the walk over 32 positions, one a lane, in order:
+// __match_any_sync groups the lanes by depth; a close takes the moves of
+// its group since the group's previous close (popcounts of four move
+// ballots over a lane mask), plus the table's pending sums if it is the
+// group's first close; the group's last close (or its last lane, with no
+// close) writes the table once. Returns this lane's cancel (H, V), 0
+// off closes.
+__device__ __forceinline__ int2 walk_step(int e, int c, int2* tab, int dlo,
+                                          int R, int lane) {
+  const unsigned lt = (1u << lane) - 1;
+  const int cps = c & 3;
+  const int k = (e >> 2) - dlo;
+  const bool act = (e & 1) && k >= 0 && k < R;
+  const bool close = act && ((e >> 1) & 1);
+  const bool move = act && !close;
+  const unsigned g = __match_any_sync(FULL_MASK, act ? k : -1);
+  const unsigned closes = __ballot_sync(FULL_MASK, close);
+  const unsigned mL = __ballot_sync(FULL_MASK, move && cps == 3);
+  const unsigned mR = __ballot_sync(FULL_MASK, move && cps == 1);
+  const unsigned mU = __ballot_sync(FULL_MASK, move && cps == 0);
+  const unsigned mD = __ballot_sync(FULL_MASK, move && cps == 2);
+  auto sum_h = [&](unsigned m) { return __popc(mL & m) - __popc(mR & m); };
+  auto sum_v = [&](unsigned m) { return __popc(mU & m) - __popc(mD & m); };
+  int2 cancel = make_int2(0, 0);
+  if (close) {
+    const unsigned prior = closes & g & lt;
+    // the group's lanes below this one, after its previous close if any
+    const unsigned m = prior ? g & lt & ~((2u << (31 - __clz(prior))) - 1)
+                             : g & lt;
+    cancel = make_int2(sum_h(m), sum_v(m));
+    if (!prior) {
+      const int2 p = tab[k];
+      cancel.x += p.x >> 1;
+      cancel.y += p.y;
+    }
+  }
+  __syncwarp();
+  if (act) {
+    const unsigned gc = closes & g;
+    if (lane == 31 - __clz(gc ? gc : g)) {
+      if (gc) {  // the moves after the group's last close
+        const unsigned m = g & ~((2u << lane) - 1);
+        tab[k] = make_int2(2 * sum_h(m) + 1, sum_v(m));
+      } else {
+        const int2 p = tab[k];
+        tab[k] = make_int2(p.x + 2 * sum_h(g), p.y + sum_v(g));
+      }
+    }
+  }
+  __syncwarp();
+  return cancel;
+}
+
+// The walk over positions [s0, s1) of a slice by one warp, from the
+// pending sums in `tab` and the position `pcarry` before s0: the
+// 64-bit position scan and the edge ids (the next step's words loaded
+// ahead).
+__device__ __forceinline__ void walk_ids(
+    const int* __restrict__ e_row, const int* __restrict__ c_row,
+    const int* __restrict__ nd, int* __restrict__ out, int2* tab, int dlo,
+    int R, int s0, int s1, long long pcarry, int CAP_CH, int sx, int sy,
+    int lane) {
+  const int sxe = sx + 1;
+  int e_nx = s0 + lane < s1 ? e_row[s0 + lane] : 0;
+  int c_nx = s0 + lane < s1 ? c_row[s0 + lane] : 0;
+  for (int t0 = s0; t0 < s1; t0 += 32) {
+    const int i = t0 + lane;
+    const int e = e_nx, c = c_nx;
+    if (i + 32 < s1) {
+      e_nx = e_row[i + 32];
+      c_nx = c_row[i + 32];
+    }
+    const int2 cn = walk_step(e, c, tab, dlo, R, lane);
+    const int cps = c & 3;
+    const int mv = (c >> 2) & 1;
+    const int delta = mv ? move_delta(cps, sxe) : 0;
+    long long acc = delta + cn.x + (long long)sxe * cn.y;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long n = __shfl_up_sync(FULL_MASK, acc, o);
+      if (lane >= o) acc += n;
+    }
+    const long long pos_after = pcarry + acc;
+    pcarry += __shfl_sync(FULL_MASK, acc, 31);
+    if (i < s1) {
+      int id = -1;
+      if (mv) {
+        const int chain = c >> 3;
+        const long long base = chain < CAP_CH ? nd[chain] : 0;
+        id = edge_id(pos_after + base - delta, cps, sx, sy);
+      }
+      out[i] = id;
+    }
+  }
+}
+
+// One block a slice. Where the slice's depth range fits `budget`
+// entries, its warps split it into blockDim / 32 segments, one each, and
+// the tables live in shared memory (`budget` entries a warp):
+//   1. each warp walks its segment from empty tables: per depth, the
+//      moves after the segment's last close (closed) or all of them, and
+//      the segment's local sum of position steps;
+//   2. per depth, one thread carries the pending sums over the segments
+//      in order, so each segment's table receives the sums pending at
+//      its start; each depth that a segment closes adds them to that
+//      segment's position steps (its first close of the depth takes
+//      them);
+//   3. each warp walks its segment again from those sums and its
+//      position carry (the steps of the segments before it), writing
+//      the ids.
+// Otherwise (a corrupt stream's range; the budget's shrunk in tests)
+// warp 0 walks the whole slice with the table in the slice's row of
+// `scratch` (stride entries).
+__global__ void __launch_bounds__(1024)
+replay_positions_kernel(const int* __restrict__ ev, const int* __restrict__ cls,
+                        const int* __restrict__ drange,
+                        const int* __restrict__ nodes, int2* __restrict__ scratch,
+                        int* __restrict__ ids, int CAP, int CAP_CH, int sx,
+                        int sy, int budget, int stride) {
+  extern __shared__ int2 tabs[];
+  __shared__ long long steps[MAX_WARPS], extra[MAX_WARPS];
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int W = blockDim.x >> 5;
+  const int sxe = sx + 1;
+  const int* e_row = ev + (size_t)b * CAP;
+  const int* c_row = cls + (size_t)b * CAP;
+  const int* nd = nodes + (size_t)b * CAP_CH;
+  int* out = ids + (size_t)b * CAP;
+  const int dlo = drange[2 * b];
+  const int R = min(max(drange[2 * b + 1] - dlo + 1, 0), stride);
+
+  if (R > budget) {
+    if (wid == 0) {
+      int2* tab = scratch + (size_t)b * stride;
+      for (int k = lane; k < R; k += 32) tab[k] = make_int2(0, 0);
+      __syncwarp();
+      walk_ids(e_row, c_row, nd, out, tab, dlo, R, 0, CAP, 0, CAP_CH, sx, sy,
+               lane);
+    }
+    return;  // uniform over the block: no barrier follows
+  }
+
+  const int L = (CAP + W - 1) / W;
+  const int s0 = min(wid * L, CAP), s1 = min(s0 + L, CAP);
+  int2* tab = tabs + (size_t)wid * budget;
+  for (int k = lane; k < R; k += 32) tab[k] = make_int2(0, 0);
+  if (threadIdx.x < MAX_WARPS) extra[threadIdx.x] = 0;
+  __syncwarp();
+
+  // 1: the local walk
+  long long local = 0;
+  for (int t0 = s0; t0 < s1; t0 += 32) {
+    const int i = t0 + lane;
+    const int e = i < s1 ? e_row[i] : 0;
+    const int c = i < s1 ? c_row[i] : 0;
+    const int2 cn = walk_step(e, c, tab, dlo, R, lane);
+    const int delta = (c >> 2) & 1 ? move_delta(c & 3, sxe) : 0;
+    local += delta + cn.x + (long long)sxe * cn.y;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) local += __shfl_xor_sync(FULL_MASK, local, o);
+  if (lane == 0) steps[wid] = local;
+  __syncthreads();
+
+  // 2: the pending sums at each segment's start
+  for (int k = threadIdx.x; k < R; k += blockDim.x) {
+    int h = 0, v = 0;
+    for (int s = 0; s < W; ++s) {
+      const int2 o = tabs[(size_t)s * budget + k];
+      tabs[(size_t)s * budget + k] = make_int2(2 * h, v);
+      if (o.x & 1) {
+        if (h || v)
+          atomicAdd((unsigned long long*)&extra[s],
+                    (unsigned long long)(h + (long long)sxe * v));
+        h = o.x >> 1;
+        v = o.y;
+      } else {
+        h += o.x >> 1;
+        v += o.y;
+      }
     }
   }
   __syncthreads();
 
-  __shared__ long long warpl[MAX_WARPS];
-  replay_forward(cls + (size_t)b * CAP, nodes + (size_t)b * CAP_CH, can,
-                 ids + (size_t)b * CAP, CAP, CAP_CH, sx, sy, warpl);
+  // 3: the walk that writes the ids
+  long long pcarry = lane < wid ? steps[lane] + extra[lane] : 0;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) pcarry += __shfl_xor_sync(FULL_MASK, pcarry, o);
+  walk_ids(e_row, c_row, nd, out, tab, dlo, R, s0, s1, pcarry, CAP_CH, sx, sy,
+           lane);
 }
 
-// Kernel 3. Replaces replay_pallas._paint_vcg_kernel and
+// ---------------------------------------------------------------------------
+// Kernel 3: paint_vcg
+// ---------------------------------------------------------------------------
+
+// Replaces replay_pallas._paint_vcg_kernel and
 // replay_big._paint_vcg_big: unsorted edge ids -> V/H presence bits in
 // shared memory (atomicOr; 64 KB for a 512^2 slice) -> the 4-bit VCG
 // V[y,x+1] | V[y,x]<<1 | H[y+1,x]<<2 | H[y,x]<<3, complemented for
@@ -198,26 +481,85 @@ __global__ void paint_vcg_kernel(const int* __restrict__ ids,
   }
 }
 
+// The same paint for a slice whose edge bitmap passes one block's
+// shared memory (from about 930K pixels): a (bands, B) grid, each block
+// painting P raster pixels [p0, p1). It keeps only the bits its pixels
+// read, in three ranges: the V ids [v0, v1) of its rows' span, and the
+// H ids of its pixels' top edges [NV + p0, NV + p1) and bottom edges
+// [NV + p0 + sx, NV + p1 + sx), so bands may cut rows and any width
+// fits. Every block reads all of the slice's ids (twice the id bytes
+// at two bands, against the bitmap's 3 bits a pixel).
+__global__ void paint_vcg_bands_kernel(const int* __restrict__ ids,
+                                       int* __restrict__ vcg, int CAP, int sx,
+                                       int sy, int permissible, int P) {
+  extern __shared__ unsigned bits[];
+  const int b = blockIdx.y;
+  const int T = blockDim.x;
+  const int sxe = sx + 1;
+  const int NV = sy * sxe;
+  const int n = sx * sy;
+  const int p0 = blockIdx.x * P;
+  const int p1 = min(p0 + P, n);
+  const int v0 = (p0 / sx) * sxe + p0 % sx;
+  const int v1 = ((p1 - 1) / sx) * sxe + (p1 - 1) % sx + 2;
+  const int wv = (P + (P - 1) / sx + 2 + 31) >> 5;  // as replay._band_words
+  const int wh = (P + 31) >> 5;
+  unsigned* V = bits;
+  unsigned* Ht = bits + wv;
+  unsigned* Hb = Ht + wh;
+  for (int w = threadIdx.x; w < wv + 2 * wh; w += T) bits[w] = 0;
+  __syncthreads();
+  const int* id = ids + (size_t)b * CAP;
+  const int h0 = NV + p0, h1 = NV + p1;
+  for (int i = threadIdx.x; i < CAP; i += T) {
+    const int e = id[i];
+    if (e >= v0 && e < v1) atomicOr(&V[(e - v0) >> 5], 1u << ((e - v0) & 31));
+    if (e >= h0 && e < h1) atomicOr(&Ht[(e - h0) >> 5], 1u << ((e - h0) & 31));
+    if (e >= h0 + sx && e < h1 + sx)
+      atomicOr(&Hb[(e - h0 - sx) >> 5], 1u << ((e - h0 - sx) & 31));
+  }
+  __syncthreads();
+  const int comp = permissible ? 0 : 0b1111;
+  int* out = vcg + (size_t)b * n;
+  auto bit = [](const unsigned* a, int k) {
+    return (int)((a[k >> 5] >> (k & 31)) & 1u);
+  };
+  for (int p = p0 + threadIdx.x; p < p1; p += T) {
+    const int y = p / sx;
+    const int v = y * sxe + p - y * sx - v0;
+    const int v4 = bit(V, v + 1) | (bit(V, v) << 1) | (bit(Hb, p - p0) << 2) |
+                   (bit(Ht, p - p0) << 3);
+    out[p] = v4 ^ comp;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int replay_keys_launch(const void* packed, const void* nbytes,
-                       const void* n_chains, void* keys, void* cls, int B,
-                       int CAP_B, int tile, void* stream) {
-  replay_keys_kernel<<<B, tile, 0, (cudaStream_t)stream>>>(
+                       const void* n_chains, void* ev, void* cls, void* drange,
+                       int B, int CAP_B, int threads, int aligned,
+                       void* stream) {
+  replay_keys_kernel<<<B, threads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)packed, (const int*)nbytes, (const int*)n_chains,
-      (long long*)keys, (int*)cls, CAP_B);
+      (int*)ev, (int*)cls, (int*)drange, CAP_B, aligned && CAP_B % 8 == 0);
   return (int)cudaGetLastError();
 }
 
-int replay_positions_launch(const void* skeys, const void* cls,
-                            const void* nodes, void* cancel, void* ids, int B,
-                            int CAP, int CAP_CH, int sx, int sy, int tile,
-                            void* stream) {
-  replay_positions_kernel<<<B, tile, 0, (cudaStream_t)stream>>>(
-      (const long long*)skeys, (const int*)cls, (const int*)nodes,
-      (int*)cancel, (int*)ids, CAP, CAP_CH, sx, sy);
+int replay_positions_launch(const void* ev, const void* cls,
+                            const void* drange, const void* nodes,
+                            void* scratch, void* ids, int B, int CAP,
+                            int CAP_CH, int sx, int sy, int budget, int stride,
+                            int warps, void* stream) {
+  const size_t smem = (size_t)warps * budget * sizeof(int2);
+  cudaError_t err = cudaFuncSetAttribute(
+      replay_positions_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  replay_positions_kernel<<<B, 32 * warps, smem, (cudaStream_t)stream>>>(
+      (const int*)ev, (const int*)cls, (const int*)drange, (const int*)nodes,
+      (int2*)scratch, (int*)ids, CAP, CAP_CH, sx, sy, budget, stride);
   return (int)cudaGetLastError();
 }
 
@@ -230,6 +572,21 @@ int paint_vcg_launch(const void* ids, void* vcg, int B, int CAP, int sx,
   if (err != cudaSuccess) return (int)err;
   paint_vcg_kernel<<<B, 1024, smem, (cudaStream_t)stream>>>(
       (const int*)ids, (int*)vcg, CAP, sx, sy, permissible);
+  return (int)cudaGetLastError();
+}
+
+int paint_vcg_bands_launch(const void* ids, void* vcg, int B, int CAP, int sx,
+                           int sy, int permissible, int P, int words,
+                           void* stream) {
+  const size_t smem = (size_t)words * 4;
+  cudaError_t err = cudaFuncSetAttribute(
+      paint_vcg_bands_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)sx * sy;
+  const dim3 grid((unsigned)((n + P - 1) / P), B);
+  paint_vcg_bands_kernel<<<grid, 1024, smem, (cudaStream_t)stream>>>(
+      (const int*)ids, (int*)vcg, CAP, sx, sy, permissible, P);
   return (int)cudaGetLastError();
 }
 

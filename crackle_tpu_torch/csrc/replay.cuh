@@ -1,9 +1,41 @@
-// The forward position replay that replay_positions (replay.cu) and
-// replay_positions_compact (compact.cu) share.
+// The edge id arithmetic that replay_positions (replay.cu) and
+// replay_positions_compact (compact.cu) share, and the latter's
+// forward position replay.
 #pragma once
 #include "common.cuh"
 
 namespace ckl {
+
+// A move's position delta: UP -(sx+1), RIGHT +1, DOWN +(sx+1), LEFT -1.
+__device__ __forceinline__ int move_delta(int cps, int sxe) {
+  return cps == 0 ? -sxe : cps == 1 ? 1 : cps == 2 ? sxe : -1;
+}
+
+// The edge id of a move of direction cps from corner position pb (64
+// bits: see replay_forward): V plane sy x (sx+1), then H plane (sy+1) x
+// sx; -1 where out of range.
+__device__ __forceinline__ int edge_id(long long pb, int cps, int sx,
+                                       int sy) {
+  const int sxe = sx + 1;
+  long long py, px;
+  if (pb >= 0 && pb <= INT_MAX) {  // every in-range edge: 32-bit division
+    const unsigned q = (unsigned)pb / (unsigned)sxe;
+    py = q;
+    px = (unsigned)pb - q * (unsigned)sxe;
+  } else {
+    py = floor_div(pb, sxe);
+    px = pb - py * sxe;
+  }
+  const long long ey = cps == 0 ? py - 1 : py;
+  const long long ex = cps == 3 ? px - 1 : px;
+  if (cps == 1 || cps == 3) {
+    if (ey >= 0 && ey <= sy && ex >= 0 && ex < sx)
+      return sy * sxe + (int)ey * sx + (int)ex;
+  } else if (ey >= 0 && ey < sy && ex >= 0 && ex < sxe) {
+    return (int)ey * sxe + (int)ex;
+  }
+  return -1;
+}
 
 // One slice, one block: a forward tiled cumsum of each codepoint's
 // move delta, the H and V cancels at its position (`can`, (2, CAP),
@@ -21,7 +53,6 @@ __device__ __forceinline__ void replay_forward(
     int sy, long long* warpl) {
   const int T = blockDim.x;
   const int sxe = sx + 1;
-  const int NV = sy * sxe;
   long long pcarry = 0;
   for (int t0 = 0; t0 < CAP; t0 += T) {
     const int i = t0 + threadIdx.x;
@@ -32,7 +63,7 @@ __device__ __forceinline__ void replay_forward(
       cps = c & 3;
       mv = (c >> 2) & 1;
       chain = c >> 3;
-      delta = mv ? (cps == 0 ? -sxe : cps == 1 ? 1 : cps == 2 ? sxe : -1) : 0;
+      delta = mv ? move_delta(cps, sxe) : 0;
       acc = delta + __ldcg(&can[i]) + (long long)sxe * __ldcg(&can[CAP + i]);
     }
     long long tot;
@@ -44,17 +75,7 @@ __device__ __forceinline__ void replay_forward(
       if (mv) {
         const long long base =
             (chain >= 0 && chain < CAP_CH) ? nodes[chain] : 0;
-        const long long pb = pos_after + base - delta;
-        const long long py = floor_div(pb, sxe);
-        const long long px = pb - py * sxe;
-        const long long ey = cps == 0 ? py - 1 : py;
-        const long long ex = cps == 3 ? px - 1 : px;
-        if (cps == 1 || cps == 3) {
-          if (ey >= 0 && ey <= sy && ex >= 0 && ex < sx)
-            id = NV + (int)ey * sx + (int)ex;
-        } else if (ey >= 0 && ey < sy && ex >= 0 && ex < sxe) {
-          id = (int)ey * sxe + (int)ex;
-        }
+        id = edge_id(pos_after + base - delta, cps, sx, sy);
       }
       ids[i] = id;
     }

@@ -39,13 +39,18 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-  # packed, nbytes, n_chains, keys, cls, B, CAP_B, tile, stream
-  "replay_keys_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-  # skeys, cls, nodes, cancel, ids, B, CAP, CAP_CH, sx, sy, tile, stream
-  "replay_positions_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P],
+  # packed, nbytes, n_chains, ev, cls, drange, B, CAP_B, threads,
+  # aligned, stream
+  "replay_keys_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+  # ev, cls, drange, nodes, scratch, ids, B, CAP, CAP_CH, sx, sy, budget,
+  # stride, warps, stream
+  "replay_positions_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _P],
   # ids, vcg, B, CAP, sx, sy, permissible, stream
   "paint_vcg_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
+  # ids, vcg, B, CAP, sx, sy, permissible, band pixels, band words,
+  # stream
+  "paint_vcg_bands_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
   # vcg, T, L, counts, cc, N, painted, B, sx, sy, K, cap_n, tile, stream
   "ccl_paint_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P],

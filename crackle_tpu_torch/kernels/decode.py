@@ -18,18 +18,18 @@ from . import replay as _replay
 def _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx: int, sy: int,
                  permissible: bool):
   """VCG (B, sy, sx) int32, crack-format complement applied, through
-  the three replay kernels and a sort of the keys, or with
-  replay.CANCEL_COMPACT through the compact-cancel kernels in place of
-  replay_positions (the same edge ids)."""
-  keys, cls = _replay.replay_keys(packed, nbytes, n_chains)
-  skeys = torch.sort(keys, dim=1).values
+  the three replay kernels, or with replay.CANCEL_COMPACT through the
+  compact-cancel kernels in place of replay_positions (the same edge
+  ids), which read the events as the reference's sorted keys."""
+  ev, cls, drange = _replay.replay_keys(packed, nbytes, n_chains)
   if _replay.CANCEL_COMPACT:
+    skeys = _replay.sorted_keys(ev, cls)
     dense = _replay.cancel_sums(skeys)
     tables = _replay.compact_closes(
       dense, _replay.close_cap(skeys.shape[1], nodes.shape[1]))
     ids = _replay.replay_positions_compact(cls, tables, nodes, sx, sy)
   else:
-    ids = _replay.replay_positions(skeys, cls, nodes, sx, sy)
+    ids = _replay.replay_positions(ev, cls, drange, nodes, sx, sy)
   return _replay.paint_vcg(ids, sx, sy, permissible)
 
 

@@ -355,11 +355,14 @@ def _stored_crcs(head, binary, dev):
 
 def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
   """Parse a crackle stream and park it on `device` as a DeviceStream.
-  Returns None (with a logged reason) where the reference's host rules
-  decline the stream: a label format other than flat or condensed pins,
-  a slice longer than MAX_DEVICE_CAP codepoints, more than PAINT_CAP_N
-  components in a slice of a flat stream, or pins labels stored wider
-  than 32 bits."""
+  Returns None (with a logged reason) for a label format other than
+  flat or condensed pins, a slice longer than MAX_DEVICE_CAP codepoints
+  (the split decode is not ported), more than PAINT_CAP_N components in
+  a slice of a flat stream, or pins labels stored wider than 32 bits.
+  Every slice size is taken otherwise: the paint goes to bands of pixels
+  past one block's shared memory (replay.paint_band_px), where the
+  reference's flat upload declines 1024^2 slices for a TPU VMEM
+  limit."""
   dev = _device(device)
   head = _codec.header(binary)
   if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:

@@ -2,17 +2,23 @@
 
 Counterpart of crackle_tpu/kernels/replay_pallas.py (slices up to 511
 wide) and replay_big.py (wider slices, longer streams): one replay
-serves both shape classes. Three kernels, with a sort between the
-first two (csrc/replay.cu):
+serves both shape classes. Three kernels (csrc/replay.cu):
 
-  replay_keys       packed diffs -> sort keys + cls words
-  torch.sort        keys ascending per slice
-  replay_positions  sorted keys + cls -> masked edge ids
+  replay_keys       packed diffs -> event words + cls words + depth range
+  replay_positions  events + cls -> masked edge ids
   paint_vcg         edge ids -> VCG (B, sy, sx) int32
+
+The reference groups the events by depth with a sort of (depth,
+position) keys (decode.py:144-187). What it computes reduces to this:
+each active move at position p and depth d takes its +-1 at the first
+active close q > p of depth d, and nothing if there is none. The port
+computes that by a forward walk with the pending sums of each depth in
+a table (replay_positions), so no sort runs on the default path.
 
 With CANCEL_COMPACT, three kernels of csrc/compact.cu take the place of
 replay_positions, giving the same edge ids element by element (the
-reference's compact-cancel path, replay_big.py:878-980):
+reference's compact-cancel path, replay_big.py:878-980); they read the
+sorted keys, which sorted_keys rebuilds from the event words:
 
   cancel_sums               sorted keys -> dense close records
   compact_closes            dense records -> compact close tables
@@ -22,8 +28,7 @@ Each wrapper runs its kernel for CUDA tensors and its plain PyTorch
 version for CPU tensors. The plain versions follow
 decode._decode_vcg_batch, with scatter_add_/scatter_ where JAX used
 one-hot matmuls, and walk the stream in tiles of TILE codepoints with
-the same carries as the kernels, so shrinking TILE exercises the
-carries on small streams.
+carries, so shrinking TILE exercises the carries on small streams.
 """
 import os
 
@@ -31,9 +36,21 @@ import torch
 
 from . import _build
 
-# codepoints per tile: the kernels' block size, and the plain versions'
-# tile; a power of two in [32, 1024]
+# a power of two in [32, 1024]: the plain versions' tile (codepoints);
+# replay_keys' block size (each thread takes 32 codepoints, so a block
+# step covers 32 * TILE); the compact kernels' block size
 TILE = 1024
+
+# entries (two int32 each) of the per-depth pending table that each
+# warp of replay_positions keeps in shared memory; a slice whose depth
+# range is wider is walked by one warp with the table in a scratch
+# tensor in device memory. The bench volumes' slices span at most 131
+# (512^3) and 328 (u64 256^2) depths. Tests shrink it to run that branch.
+DEPTH_TABLE = 384
+
+# the most warps (segments walked in parallel) a slice takes in
+# replay_positions; a segment holds at least 32 positions
+POS_WARPS = 32
 
 INF = torch.iinfo(torch.int64).max
 
@@ -71,7 +88,7 @@ def _shift_in(x, first):
 
 
 # ---------------------------------------------------------------------------
-# kernel 1: sort keys
+# kernel 1: event words
 # ---------------------------------------------------------------------------
 
 def unpack_diffs(packed):
@@ -82,9 +99,21 @@ def unpack_diffs(packed):
                      dim=2).reshape(B, -1)
 
 
+def event_words(depth, close, active):
+  """depth << 2 | close << 1 | 1 where active, else 0 (int32)."""
+  return torch.where(active, (depth << 2) | (close.to(torch.int64) << 1) | 1,
+                     0).to(torch.int32)
+
+
 def replay_keys_plain(packed, nbytes, n_chains):
-  """Plain version of the replay_keys kernel. Returns (keys (B, CAP)
-  int64, cls (B, CAP) int32)."""
+  """Plain version of the replay_keys kernel. Returns (ev (B, CAP)
+  int32 event words, cls (B, CAP) int32, drange (B, 2) int32).
+
+  ev: depth << 2 | close << 1 | 1 at an active event (a valid move at
+  its depth, or a valid terminate at the depth of the scope it closes),
+  0 elsewhere. cls: cps | move << 2 | chain << 3. drange: the least and
+  the largest depth of a slice's active events, (0, -1) if it has
+  none."""
   B, CAP_B = packed.shape
   CAP = CAP_B * 4
   dev = packed.device
@@ -102,8 +131,10 @@ def replay_keys_plain(packed, nbytes, n_chains):
 
   cps_c, prev_c, r_c, rs_c = full(0), full(255), full(0), full(-1)
   c_c, cm_c, ie_c, ec_c = full(0), full(INF), full(0), full(0)
-  keys = torch.empty((B, CAP), dtype=torch.int64, device=dev)
+  ev = torch.empty((B, CAP), dtype=torch.int32, device=dev)
   cls = torch.empty((B, CAP), dtype=torch.int32, device=dev)
+  big = torch.iinfo(torch.int32).max
+  lo, hi = full(big), full(-big)
   for t0 in range(0, CAP, T):
     sl = slice(t0, t0 + T)
     i = idx[None, sl]
@@ -138,8 +169,9 @@ def replay_keys_plain(packed, nbytes, n_chains):
     depth = c + chain_of + 1 + is_term
     close = (is_term & valid).to(torch.int64)
     active = valid & (is_move | is_term)
-    keys[:, sl] = torch.where(
-      active, ((depth * CAP + i) * 8) | (close << 2) | cps, INF)
+    ev[:, sl] = event_words(depth, close, active)
+    lo = torch.minimum(lo, torch.where(active, depth, big).amin(1))
+    hi = torch.maximum(hi, torch.where(active, depth, -big).amax(1))
     cls[:, sl] = (cps | ((is_move & valid).to(torch.int64) << 2)
                   | (chain_of << 3)).to(torch.int32)
 
@@ -147,12 +179,16 @@ def replay_keys_plain(packed, nbytes, n_chains):
     r_c, rs_c = r[:, -1], run_start[:, -1]
     c_c, cm_c = c[:, -1], cm[:, -1]
     ie_c, ec_c = is_end[:, -1], end_cum[:, -1]
-  return keys, cls
+  empty = lo > hi
+  drange = torch.stack([torch.where(empty, 0, lo),
+                        torch.where(empty, -1, hi)], 1)
+  return ev, cls, drange.to(torch.int32)
 
 
 def replay_keys(packed, nbytes, n_chains):
   """Kernel 1: packed (B, CAP_B) uint8, nbytes (B,) int32, n_chains
-  (B,) int32 -> (keys (B, 4*CAP_B) int64, cls (B, 4*CAP_B) int32)."""
+  (B,) int32 -> (ev (B, 4*CAP_B) int32, cls (B, 4*CAP_B) int32, drange
+  (B, 2) int32); see replay_keys_plain."""
   _check("replay_keys", packed, torch.uint8, 2)
   _check("replay_keys", nbytes, torch.int32, 1)
   _check("replay_keys", n_chains, torch.int32, 1)
@@ -164,54 +200,112 @@ def replay_keys(packed, nbytes, n_chains):
   CAP = CAP_B * 4
   if CAP & (CAP - 1):
     raise ValueError(f"replay_keys: CAP {CAP} is not a power of two")
-  keys = torch.empty((B, CAP), dtype=torch.int64, device=packed.device)
+  ev = torch.empty((B, CAP), dtype=torch.int32, device=packed.device)
   cls = torch.empty((B, CAP), dtype=torch.int32, device=packed.device)
+  drange = torch.empty((B, 2), dtype=torch.int32, device=packed.device)
   if B:
     lib = _build.library()
     err = lib.replay_keys_launch(
       packed.data_ptr(), nbytes.data_ptr(), n_chains.data_ptr(),
-      keys.data_ptr(), cls.data_ptr(), B, CAP_B, _tile(CAP),
+      ev.data_ptr(), cls.data_ptr(), drange.data_ptr(), B, CAP_B,
+      min(_tile(CAP), max(32, CAP // 32)), int(packed.data_ptr() % 8 == 0),
       torch.cuda.current_stream(packed.device).cuda_stream)
     _build.check("replay_keys", err)
     _build.LAUNCHES["replay_keys"] += 1
-  return keys, cls
+  return ev, cls, drange
 
 
 # ---------------------------------------------------------------------------
-# kernel 2: scope matching, cancels, positions -> edge ids
+# kernel 2: the forward walk: cancels, positions -> edge ids
 # ---------------------------------------------------------------------------
 
-def _next_close(skeys, CAP):
-  """Per sorted event, the position of the next close at the same
-  depth (CAP if none), by a reverse scan over tiles from the end."""
-  B = skeys.shape[0]
-  dev = skeys.device
+def _unpack_events(ev, cls):
+  """(act, close, move, depth, wh, wv) of event words: each move's H
+  and V cancel contribution is -delta, LEFT +1 / RIGHT -1 in H and UP +1
+  / DOWN -1 in V (in units of sx + 1)."""
+  e = ev.to(torch.int64)
+  act = (e & 1) > 0
+  close = act & (((e >> 1) & 1) > 0)
+  move = act & ~close
+  cps = cls.to(torch.int64) & 3
+  wh = torch.where(move & (cps == LEFT), 1, 0) - torch.where(
+    move & (cps == RIGHT), 1, 0)
+  wv = torch.where(move & (cps == UP), 1, 0) - torch.where(
+    move & (cps == DOWN), 1, 0)
+  return act, close, move, e >> 2, wh, wv
+
+
+def _close_cancels(ev, cls, drange):
+  """(B, 2 * CAP + 1) int64: each close's H cancel at [0, CAP) and V
+  cancel at [CAP, 2 * CAP) by stream position, the sums of the moves of
+  its depth since that depth's last close.
+
+  A forward walk over tiles of TILE positions carries per depth the
+  pending sums of the moves not yet flushed. Inside a tile the events
+  are grouped by depth (a sort of the tile's own (depth, position)
+  records), and in each group a close takes the moves since the group's
+  previous close, plus the carried sums if it is the group's first."""
+  B, CAP = ev.shape
+  dev = ev.device
   T = _tile(CAP)
-  logcap = CAP.bit_length() - 1
-  inf = skeys == INF
-  close = (((skeys >> 2) & 1) > 0) & ~inf
-  body = skeys >> 3
-  depth = body >> logcap
-  nxt_inf = torch.cat(
-    [inf[:, 1:], torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
-  nxt_depth = torch.cat([depth[:, 1:], depth[:, -1:]], 1)
-  seg_last = inf | nxt_inf | (depth != nxt_depth)
-  e = torch.where(close | seg_last,
-                  torch.where(close, body & (CAP - 1), CAP), -1)
+  act, close, _, depth, wh, wv = _unpack_events(ev, cls)
+  lo = drange[:, :1].to(torch.int64)
+  R = max(int((drange[:, 1] - drange[:, 0]).max()) + 1, 0) if B else 0
+  k = torch.where(act, depth - lo, R)  # column R takes the inactive
+  pend = torch.zeros((2, B, R + 1), dtype=torch.int64, device=dev)
+  cancel = torch.zeros((B, 2 * CAP + 1), dtype=torch.int64, device=dev)
+  for t0 in range(0, CAP, T):
+    sl = slice(t0, t0 + T)
+    n = k[:, sl].shape[1]
+    j = torch.arange(n, device=dev)[None, :]
+    order = torch.argsort(k[:, sl] * n + j, dim=1)
+    ks = torch.gather(k[:, sl], 1, order)
+    cl = torch.gather(close[:, sl], 1, order)
+    w = torch.stack([torch.gather(wh[:, sl], 1, order),
+                     torch.gather(wv[:, sl], 1, order)])
+    new = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                     ks[:, 1:] != ks[:, :-1]], 1)
+    last = torch.cat([ks[:, 1:] != ks[:, :-1],
+                      torch.ones((B, 1), dtype=torch.bool, device=dev)], 1)
+    start = torch.cummax(torch.where(new, j, -1), 1).values
+    ncl = torch.cumsum(cl.to(torch.int64), 1)
+    before = torch.gather(ncl - cl.to(torch.int64), 1, start)
+    first_close = cl & (ncl - 1 == before)  # no close before it in its group
+    any_close = ncl > before
+    carried = torch.gather(pend, 2, ks.expand(2, B, n))
+    cum = torch.cumsum(w, 2)
+    # an anchor is a group start (the sum before it) or a close (the sum
+    # at it); a close takes the sum since the last anchor before it
+    anchor = torch.where(cl, cum, cum - w)
+    at = torch.cummax(torch.where(new | cl, j, -1), 1).values
+    at_prev = torch.cat([torch.zeros((B, 1), dtype=torch.int64, device=dev),
+                         at[:, :-1]], 1)
+    run = torch.where(new, 0, cum - torch.gather(anchor, 2,
+                                                 at_prev.expand(2, B, n)))
+    val = run + torch.where(first_close, carried, 0)
+    pos = order + t0
+    for p, v in enumerate(val):
+      cancel.scatter_(1, torch.where(cl, p * CAP + pos, 2 * CAP), v)
+    # a group's last element leaves the sums after its last close, or
+    # the carried sums and all of its moves if it has no close
+    tail = cum - torch.gather(anchor, 2, at.expand(2, B, n))
+    tail = torch.where(any_close, tail, tail + carried)
+    pend.scatter_(2, torch.where(last, ks, R).expand(2, B, n), tail)
+  return cancel
 
-  nc = torch.empty_like(e)
-  carry = torch.full((B, 1), -1, dtype=torch.int64, device=dev)
-  for t0 in reversed(range(0, CAP, T)):
-    et = e[:, t0:t0 + T]
-    n = et.shape[1]
-    # index of the nearest set entry at or after each element
-    k = torch.where(et >= 0, torch.arange(n, device=dev)[None, :], n)
-    k = torch.flip(torch.cummin(torch.flip(k, [1]), 1).values, [1])
-    got = torch.gather(et, 1, torch.clamp(k, max=n - 1))
-    val = torch.where(k < n, got, carry)
-    nc[:, t0:t0 + T] = val
-    carry = val[:, :1]
-  return torch.where(nc < 0, CAP, nc)
+
+def sorted_keys(ev, cls):
+  """The reference's sort keys rebuilt from the event words, sorted per
+  slice: (depth * CAP + pos) << 3 | close << 2 | cps, INT64_MAX where
+  inactive (decode.py:154-168). Only the compact-cancel path reads
+  them."""
+  CAP = ev.shape[1]
+  act, close, _, depth, _, _ = _unpack_events(ev, cls)
+  pos = torch.arange(CAP, device=ev.device)[None, :]
+  keys = torch.where(act, ((depth * CAP + pos) << 3)
+                     | (close.to(torch.int64) << 2)
+                     | (cls.to(torch.int64) & 3), INF)
+  return torch.sort(keys, dim=1).values
 
 
 def _replay_forward_plain(cancel, cls, nodes, sx: int, sy: int):
@@ -250,49 +344,53 @@ def _replay_forward_plain(cancel, cls, nodes, sx: int, sy: int):
   return torch.where(mv & (okH | okV), ids, -1).to(torch.int32)
 
 
-def replay_positions_plain(skeys, cls, nodes, sx: int, sy: int):
-  """Plain version of the replay_positions kernel: each move's +-1 at
-  its next close, then the forward replay."""
-  B, CAP = skeys.shape
-  inf = skeys == INF
-  cps_s = skeys & 3
-  close = (((skeys >> 2) & 1) > 0) & ~inf
-  nc = _next_close(skeys, CAP)
-
-  ok = ~inf & ~close & (nc < CAP)
-  isV = (cps_s == UP) | (cps_s == DOWN)
-  w = torch.where((cps_s == LEFT) | (cps_s == UP), 1, -1)
-  bins = torch.where(ok, isV.to(torch.int64) * CAP + nc, 2 * CAP)
-  cancel = torch.zeros((B, 2 * CAP + 1), dtype=torch.int64,
-                       device=skeys.device)
-  cancel.scatter_add_(1, bins, torch.where(ok, w, 0))
-  return _replay_forward_plain(cancel, cls, nodes, sx, sy)
+def replay_positions_plain(ev, cls, drange, nodes, sx: int, sy: int):
+  """Plain version of the replay_positions kernel: each close's cancels
+  by the forward walk, then the forward replay."""
+  return _replay_forward_plain(_close_cancels(ev, cls, drange), cls, nodes,
+                               sx, sy)
 
 
-def replay_positions(skeys, cls, nodes, sx: int, sy: int):
-  """Kernel 2: sorted keys (B, CAP) int64, cls (B, CAP) int32, chain
-  start nodes (B, CAP_CH) int32 -> edge ids (B, CAP) int32."""
-  _check("replay_positions", skeys, torch.int64, 2)
+def depth_table_stride(CAP: int) -> int:
+  """Entries a slice's scratch table needs at most: active depths lie in
+  [1 - terms, branches + 1] (decode.py:152-153), and a slice has at most
+  CAP / 2 pairs, so its range is at most CAP / 2 + 1 wide."""
+  return CAP // 2 + 2
+
+
+def replay_positions(ev, cls, drange, nodes, sx: int, sy: int):
+  """Kernel 2: event words (B, CAP) int32, cls (B, CAP) int32, depth
+  ranges (B, 2) int32 (from replay_keys), chain start nodes (B, CAP_CH)
+  int32 -> edge ids (B, CAP) int32: V plane sy x (sx+1) first, then H
+  plane (sy+1) x sx; -1 where there is no edge."""
+  _check("replay_positions", ev, torch.int32, 2)
   _check("replay_positions", cls, torch.int32, 2)
+  _check("replay_positions", drange, torch.int32, 2)
   _check("replay_positions", nodes, torch.int32, 2)
-  B, CAP = skeys.shape
-  if cls.shape != skeys.shape or nodes.shape[0] != B:
+  B, CAP = ev.shape
+  if (cls.shape != ev.shape or drange.shape != (B, 2)
+      or nodes.shape[0] != B):
     raise ValueError("replay_positions: shapes differ")
   if CAP & (CAP - 1):
     raise ValueError(f"replay_positions: CAP {CAP} is not a power of two")
   if (sx + 2) * (sy + 2) >= 1 << 30:
     raise ValueError("replay_positions: slice too large for int32 ids")
-  if not _same_device("replay_positions", skeys, cls, nodes):
-    return replay_positions_plain(skeys, cls, nodes, sx, sy)
-  ids = torch.empty((B, CAP), dtype=torch.int32, device=skeys.device)
+  if not _same_device("replay_positions", ev, cls, drange, nodes):
+    return replay_positions_plain(ev, cls, drange, nodes, sx, sy)
+  if DEPTH_TABLE < 1:
+    raise ValueError(f"DEPTH_TABLE must be at least 1: {DEPTH_TABLE}")
+  ids = torch.empty((B, CAP), dtype=torch.int32, device=ev.device)
   if B:
-    cancel = torch.empty((B, 2 * CAP), dtype=torch.int32,
-                         device=skeys.device)
+    # touched only by slices whose depth range passes DEPTH_TABLE
+    stride = depth_table_stride(CAP)
+    scratch = torch.empty((B, stride, 2), dtype=torch.int32,
+                          device=ev.device)
     lib = _build.library()
     err = lib.replay_positions_launch(
-      skeys.data_ptr(), cls.data_ptr(), nodes.data_ptr(),
-      cancel.data_ptr(), ids.data_ptr(), B, CAP, nodes.shape[1], sx, sy,
-      _tile(CAP), torch.cuda.current_stream(skeys.device).cuda_stream)
+      ev.data_ptr(), cls.data_ptr(), drange.data_ptr(), nodes.data_ptr(),
+      scratch.data_ptr(), ids.data_ptr(), B, CAP, nodes.shape[1], sx, sy,
+      DEPTH_TABLE, stride, min(POS_WARPS, max(1, CAP // 32)),
+      torch.cuda.current_stream(ev.device).cuda_stream)
     _build.check("replay_positions", err)
     _build.LAUNCHES["replay_positions"] += 1
   return ids
@@ -479,39 +577,107 @@ def replay_positions_compact(cls, tables, nodes, sx: int, sy: int):
 PAINT_SMEM_MAX = 232448
 
 
-def paint_vcg_plain(ids, sx: int, sy: int, permissible: bool):
+def _band_words(P: int, sx: int) -> int:
+  """Shared-memory words of a band of P pixels: its V ids (at most P +
+  (P - 1) // sx + 2 of them) and its two H ranges (top and bottom
+  edges, P each)."""
+  return -(-(P + (P - 1) // sx + 2) // 32) + 2 * -(-P // 32)
+
+
+def paint_band_px(sx: int, sy: int) -> int:
+  """Pixels of a band of the paint kernel: the whole slice where its
+  edge bitmap fits PAINT_SMEM_MAX, else the most (a multiple of 32)
+  whose band bitmap fits."""
+  NB = sy * (sx + 1) + (sy + 1) * sx
+  if -(-NB // 32) * 4 <= PAINT_SMEM_MAX:
+    return sx * sy
+  words = PAINT_SMEM_MAX // 4
+  P = 32 * max(1, (words - 4) * sx // (3 * sx + 1))
+  while _band_words(P + 32, sx) <= words:
+    P += 32
+  while P > 32 and _band_words(P, sx) > words:
+    P -= 32
+  if _band_words(P, sx) > words:
+    raise ValueError(f"PAINT_SMEM_MAX {PAINT_SMEM_MAX} holds no band")
+  return P
+
+
+def _paint_band(ids, sx: int, sy: int, p0: int, p1: int):
+  """VCG bits (B, p1 - p0) of raster pixels [p0, p1) from the edge ids
+  in the band's three ranges, as the kernel's band block keeps them:
+  V ids [v0, v1), H ids of the top edges [NV + p0, NV + p1) and of the
+  bottom edges [NV + p0 + sx, NV + p1 + sx)."""
   B = ids.shape[0]
   sxe = sx + 1
   NV = sy * sxe
-  NB = NV + (sy + 1) * sx
   i = ids.to(torch.int64)
-  i = torch.where((i >= 0) & (i < NB), i, NB)
-  pres = torch.zeros((B, NB + 1), dtype=torch.int32, device=ids.device)
-  pres.scatter_(1, i, 1)
-  V = pres[:, :NV].reshape(B, sy, sxe)
-  H = pres[:, NV:NB].reshape(B, sy + 1, sx)
-  vcg = (V[:, :, 1:] | (V[:, :, :sx] << 1) | (H[:, 1:, :] << 2)
-         | (H[:, :sy, :] << 3))
+  i = torch.where(i >= 0, i, -(1 << 40))  # -1 lies in no range
+  p = torch.arange(p0, p1, device=ids.device)
+  y, x = p // sx, p % sx
+  v0 = (p0 // sx) * sxe + p0 % sx
+  v1 = ((p1 - 1) // sx) * sxe + (p1 - 1) % sx + 2
+
+  def present(a, b):
+    pres = torch.zeros((B, b - a + 1), dtype=torch.int32, device=ids.device)
+    pres.scatter_(1, torch.where((i >= a) & (i < b), i - a, b - a), 1)
+    return pres
+
+  V = present(v0, v1)
+  Ht = present(NV + p0, NV + p1)
+  Hb = present(NV + p0 + sx, NV + p1 + sx)
+  v = y * sxe + x - v0
+  return (V[:, v + 1] | (V[:, v] << 1) | (Hb[:, p - p0] << 2)
+          | (Ht[:, p - p0] << 3))
+
+
+def paint_vcg_plain(ids, sx: int, sy: int, permissible: bool):
+  """Plain version of the paint_vcg kernel; past one block's shared
+  memory it walks the kernel's bands (paint_band_px)."""
+  B = ids.shape[0]
+  P = paint_band_px(sx, sy)
+  if P == sx * sy:
+    sxe = sx + 1
+    NV = sy * sxe
+    NB = NV + (sy + 1) * sx
+    i = ids.to(torch.int64)
+    i = torch.where((i >= 0) & (i < NB), i, NB)
+    pres = torch.zeros((B, NB + 1), dtype=torch.int32, device=ids.device)
+    pres.scatter_(1, i, 1)
+    V = pres[:, :NV].reshape(B, sy, sxe)
+    H = pres[:, NV:NB].reshape(B, sy + 1, sx)
+    vcg = (V[:, :, 1:] | (V[:, :, :sx] << 1) | (H[:, 1:, :] << 2)
+           | (H[:, :sy, :] << 3))
+  else:
+    n = sx * sy
+    vcg = torch.cat([_paint_band(ids, sx, sy, p0, min(p0 + P, n))
+                     for p0 in range(0, n, P)], 1).reshape(B, sy, sx)
   return vcg if permissible else vcg ^ 0b1111
 
 
 def paint_vcg(ids, sx: int, sy: int, permissible: bool):
   """Kernel 3: edge ids (B, CAP) int32, in any order -> VCG (B, sy, sx)
-  int32 (complemented for impermissible streams)."""
+  int32 (complemented for impermissible streams). A slice whose edge
+  bitmap passes PAINT_SMEM_MAX is painted in bands of pixels, one block
+  each."""
   _check("paint_vcg", ids, torch.int32, 2)
   if ids.device.type != "cuda":
     return paint_vcg_plain(ids, sx, sy, permissible)
-  NB = sy * (sx + 1) + (sy + 1) * sx
-  if -(-NB // 32) * 4 > PAINT_SMEM_MAX:
-    raise ValueError(f"paint_vcg: a {sx}x{sy} slice's edge bitmap "
-                     "exceeds one block's shared memory")
+  if (sx + 2) * (sy + 2) >= 1 << 30:
+    raise ValueError("paint_vcg: slice too large for int32 ids")
+  P = paint_band_px(sx, sy)
   B, CAP = ids.shape
   vcg = torch.empty((B, sy, sx), dtype=torch.int32, device=ids.device)
   if B:
     lib = _build.library()
-    err = lib.paint_vcg_launch(
-      ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible),
-      torch.cuda.current_stream(ids.device).cuda_stream)
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    if P == sx * sy:
+      err = lib.paint_vcg_launch(
+        ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible),
+        stream)
+    else:
+      err = lib.paint_vcg_bands_launch(
+        ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible),
+        P, _band_words(P, sx), stream)
     _build.check("paint_vcg", err)
     _build.LAUNCHES["paint_vcg"] += 1
   return vcg

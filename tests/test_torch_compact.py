@@ -46,9 +46,9 @@ def _padded_inputs(binary, head):
 
 def _port_stages(inputs):
   t = teng.params_from_jax(inputs, device="cpu")
-  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  skeys = torch.sort(keys, 1).values
-  return t, skeys, cls
+  ev, cls, drange = replay.replay_keys(t["packed"], t["nbytes"],
+                                       t["n_chains"])
+  return t, replay.sorted_keys(ev, cls), cls, drange
 
 
 @pytest.fixture
@@ -78,7 +78,7 @@ def _hold_to_reference(inputs, sx, sy, permissible):
     sx, sy, permissible, stash=stash)
   want = [np.asarray(a).reshape(B, CAP) for a in stash["dense_close"]]
 
-  t, skeys, _ = _port_stages(inputs)
+  t, skeys, _, _ = _port_stages(inputs)
   dense = replay.cancel_sums_plain(skeys).numpy()
   closes = want[0] >= 0
   np.testing.assert_array_equal(dense[0] >= 0, closes)
@@ -143,9 +143,10 @@ def test_compact_ids_equal_replay_positions(monkeypatch, name, tile):
   inputs = teng.prepare_slice_inputs(binary, 0, head.sz)
   if name == "islands":
     assert inputs["nodes"].shape[1] > 32
-  t, skeys, cls = _port_stages(inputs)
-  want = replay.replay_positions_plain(skeys, cls, t["nodes"], head.sx,
-                                       head.sy)
+  t, skeys, cls, drange = _port_stages(inputs)
+  ev, _, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  want = replay.replay_positions_plain(ev, cls, drange, t["nodes"],
+                                       head.sx, head.sy)
   dense = replay.cancel_sums_plain(skeys)
   tables = replay.compact_closes_plain(
     dense, replay.close_cap(skeys.shape[1], t["nodes"].shape[1]))
@@ -182,8 +183,8 @@ def many_closes_inputs():
 
 def test_compaction_drops_ranks_past_the_table():
   t = teng.params_from_jax(many_closes_inputs(), device="cpu")
-  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  dense = replay.cancel_sums(torch.sort(keys, 1).values)
+  ev, cls, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  dense = replay.cancel_sums(replay.sorted_keys(ev, cls))
   ccap = replay.close_cap(4096, 2)
   assert ccap == 1536 and int(dense[0].max()) + 1 == 2048
   tables = replay.compact_closes(dense, ccap)

@@ -21,7 +21,7 @@ from test_torch_ccl import (hard_vcgs, labels_to_vcg, serpentine_vcg,
                             smooth_labels)
 from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
-from test_torch_replay import islands_volume, spiral_volume
+from test_torch_replay import islands_volume, random_stream, spiral_volume
 from test_torch_stats import STATS_EDGES, stats_edge_case
 
 pytestmark = pytest.mark.cuda
@@ -42,21 +42,21 @@ def _volumes():
 
 
 def _stages(t, head, cpu):
-  """keys, cls, sorted keys, ids, vcg, (cc, N) of one batch, with the
-  kernels (cpu=False) or the plain versions on the CPU."""
+  """ev, cls, drange, ids, vcg, (cc, N) of one batch, with the kernels
+  (cpu=False) or the plain versions on the CPU."""
   if cpu:
     t = {k: v.cpu() for k, v in t.items()}
   perm = head.crack_format == CrackFormat.PERMISSIBLE
-  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  skeys = torch.sort(keys, 1).values
-  ids = replay.replay_positions(skeys, cls, t["nodes"], head.sx, head.sy)
+  ev, cls, drange = replay.replay_keys(t["packed"], t["nbytes"],
+                                       t["n_chains"])
+  ids = replay.replay_positions(ev, cls, drange, t["nodes"], head.sx,
+                                head.sy)
   vcg = replay.paint_vcg(ids, head.sx, head.sy, perm)
   cc, N, _ = ccl.ccl_paint(vcg)
-  return [x.cpu() for x in (keys, cls, torch.sort(ids, 1).values, vcg, cc,
-                            N)]
+  return [x.cpu() for x in (ev, cls, drange, ids, vcg, cc, N)]
 
 
-@pytest.mark.parametrize("tile", [32, 1024])
+@pytest.mark.parametrize("tile", [32, 256, 1024])
 def test_kernels_match_plain(dev, monkeypatch, tile):
   monkeypatch.setattr(replay, "TILE", tile)
   for vol in _volumes():
@@ -66,6 +66,90 @@ def test_kernels_match_plain(dev, monkeypatch, tile):
     for got, want in zip(_stages(t, inputs["head"], False),
                          _stages(t, inputs["head"], True)):
       assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("table", [None, 1, 8])
+@pytest.mark.parametrize("tile", [32, 256, 1024])
+def test_replay_kernels_on_random_streams(dev, monkeypatch, tile, table):
+  """replay_keys and replay_positions bit-equal to their plain versions
+  on the seeded random-byte streams, at three tiles, and with the depth
+  table shrunk so that slices keep it in the scratch tensor."""
+  monkeypatch.setattr(replay, "TILE", tile)
+  if table:
+    monkeypatch.setattr(replay, "DEPTH_TABLE", table)
+  for seed in range(50):
+    t, sx, sy = random_stream(seed)
+    want = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+    got = replay.replay_keys(*(t[k].to(dev) for k in ("packed", "nbytes",
+                                                      "n_chains")))
+    torch.cuda.synchronize()
+    _equal(got, want)
+    ids = replay.replay_positions(*got, t["nodes"].to(dev), sx, sy)
+    torch.cuda.synchronize()
+    _equal([ids], [replay.replay_positions_plain(*want, t["nodes"], sx,
+                                                 sy)])
+
+
+@pytest.mark.parametrize("sx,sy", [(1024, 1024), (1500, 700)])
+def test_paint_vcg_past_one_block(dev, sx, sy):
+  """Slices whose edge bitmap passes one block's shared memory paint in
+  bands, bit-equal to the plain version: every edge id of the slice,
+  none, random ones (some out of range) and a sparse set."""
+  assert replay.paint_band_px(sx, sy) < sx * sy
+  NB = sy * (sx + 1) + (sy + 1) * sx
+  rng = np.random.RandomState(sx)
+  ids = np.stack([np.arange(NB), np.full(NB, -1),
+                  rng.randint(-5, NB + 5, NB),
+                  np.where(rng.rand(NB) < 0.01, rng.randint(0, NB, NB), -1)])
+  ids = torch.from_numpy(ids.astype(np.int32))
+  for perm in (True, False):
+    got = replay.paint_vcg(ids.to(dev), sx, sy, perm)
+    torch.cuda.synchronize()
+    _equal([got], [replay.paint_vcg_plain(ids, sx, sy, perm)])
+
+
+def blocky_1024(seed=11):
+  """1024^2 x 8 labels: 64-pixel blocks of 40 labels, shifted per
+  slice (a smooth volume's boundaries, cheap to compress)."""
+  rng = np.random.RandomState(seed)
+  blocks = rng.randint(0, 40, (17, 17, 8)).astype(np.uint32)
+  vol = np.repeat(np.repeat(blocks, 64, 0), 64, 1)
+  for z in range(8):
+    vol[:, :, z] = np.roll(vol[:, :, z], (5 * z, 3 * z), (0, 1))
+  return np.asfortranarray(vol[:1024, :1024])
+
+
+@pytest.mark.parametrize("pins", [False, True])
+def test_1024_slices_decode_on_card(dev, pins):
+  """A 1024^2 x 8 flat stream and its condensed-pins stream (the port's
+  own compress): decode_window with the CRC gate equal to the host
+  decoder; the flat one's voxel_counts and bounding_boxes equal to
+  numpy's."""
+  from crackle_tpu_torch import codec
+  vol = blocky_1024()
+  binary = codec.compress(vol, allow_pins=pins)
+  assert codec.header(binary).label_format == (2 if pins else 0)
+  s = ct.upload_stream(binary, dev)
+  assert s is not None
+  ct.reset_launches()
+  labels, _, _ = s.decode_window(0, 8, check_crcs=True)
+  torch.cuda.synchronize()
+  assert ct.LAUNCHES["paint_vcg"] == 1
+  want = np.ascontiguousarray(codec.decompress(binary).transpose(2, 1, 0))
+  np.testing.assert_array_equal(labels.cpu().numpy().reshape(want.shape),
+                                want.astype(labels.cpu().numpy().dtype))
+  if not pins:
+    uniq, counts = np.unique(vol, return_counts=True)
+    ct.reset_launches()
+    vc = ct.voxel_counts(binary, device=dev)
+    assert ct.LAUNCHES["slice_stats"] == 1
+    assert {int(u): int(c) for u, c in zip(uniq, counts)} == \
+      {int(k): int(v) for k, v in vc.items()}
+    bb = ct.bounding_boxes(binary, no_slice_conversion=True, device=dev)
+    for u in uniq:
+      xs, ys, zs = np.nonzero(vol == u)
+      assert [int(v) for v in bb[u]] == [xs.min(), ys.min(), zs.min(),
+                                          xs.max(), ys.max(), zs.max()]
 
 
 def test_corrupt_streams_do_not_fault(dev):
@@ -107,8 +191,9 @@ def _compact_stages(t, head):
   """The compact-cancel kernels on the card, each against its plain
   version on the same inputs, and their edge ids against
   replay_positions'."""
-  keys, cls = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  skeys = torch.sort(keys, 1).values
+  ev, cls, drange = replay.replay_keys(t["packed"], t["nbytes"],
+                                       t["n_chains"])
+  skeys = replay.sorted_keys(ev, cls)
   dense = replay.cancel_sums(skeys)
   torch.cuda.synchronize()
   _equal([dense], [replay.cancel_sums_plain(skeys.cpu())])
@@ -121,8 +206,8 @@ def _compact_stages(t, head):
   torch.cuda.synchronize()
   _equal([ids], [replay.replay_positions_compact_plain(
     cls.cpu(), tables.cpu(), t["nodes"].cpu(), head.sx, head.sy)])
-  return ids, replay.replay_positions(skeys, cls, t["nodes"], head.sx,
-                                      head.sy)
+  return ids, replay.replay_positions(ev, cls, drange, t["nodes"],
+                                      head.sx, head.sy)
 
 
 @pytest.mark.parametrize("tile", [32, 1024])
@@ -149,8 +234,8 @@ def test_compact_kernels_on_corrupt_streams(dev):
     bad["nbytes"] = np.full_like(inputs["nbytes"], bad["packed"].shape[1])
     _compact_stages(teng.params_from_jax(bad, device=dev), inputs["head"])
   t = teng.params_from_jax(many_closes_inputs(), device=dev)
-  keys, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  assert int(replay.cancel_sums(torch.sort(keys, 1).values)[0].max()) \
+  ev, cls, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  assert int(replay.cancel_sums(replay.sorted_keys(ev, cls))[0].max()) \
     >= replay.close_cap(4096, 2)
   _compact_stages(t, inputs["head"])
 
