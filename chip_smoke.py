@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phases 8 to 13 several):
+Phases, one line each (phases 8 to 15 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
@@ -59,7 +59,20 @@ Phases, one line each (phases 8 to 13 several):
      compresses it flat and with pins): both streams decoded with the
      CRC gate against it (the paint in bands, past one block's shared
      memory), the paint kernel against its plain version on their edge
-     ids, and the flat stream's analytics against numpy statistics.
+     ids, and the flat stream's analytics against numpy statistics;
+ 14. the window-decode entry points: decode_window (whole, [3, 7) and
+     the last slice) of the 512^3, u64, 256^2, markov-5 and both pins
+     streams, and label= masks of two present labels and an absent one
+     on the flat streams, against the oracle; codec.decompress under
+     set_engine('torch') of each; no call ends on the host codec;
+ 15. the long-slice volume (nucleus-like ellipsoids, 2048^2 x 32, made
+     by the oracle from a seed): every slice past MAX_DEVICE_CAP
+     codepoints and PAINT_CAP_N components, the split into pieces, the
+     kernels against their plain versions at its shapes,
+     decode_window(check_crcs=True) through the split and the gather
+     paint and decode_window_ccl_device against the oracle and the
+     stored CRCs, launch counts, MVx/s beside the oracle's host decode,
+     stage times and the device memory high-water mark.
 
 Any failure raises and exits non-zero; without a CUDA device the
 script exits 2 and prints no result, and it imports nothing of JAX or
@@ -72,6 +85,7 @@ library call's time where one PyTorch call computes the same function)
 and {"ok": true, "device": {...}}.
 """
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -82,6 +96,7 @@ import numpy as np
 import torch
 
 import crackle_tpu_torch as ct
+from crackle_tpu_torch import codec as pcodec
 from crackle_tpu_torch.kernels import _build, ccl, crc32c, replay, stats
 from crackle_tpu_torch.kernels import decode as dec
 from crackle_tpu_torch.kernels import engine as eng
@@ -96,6 +111,9 @@ VOLPINS = os.path.join(DATA, "connectomics_v2_pins_256x256x128.ckl")
 
 # the seed of the blocky 1024^2 x 8 volume of phase 13
 SEED_1024 = 11
+# the seed and shape (sx, sy, sz) of the long-slice volume of phase 15
+SEED_LONG = 7
+SHAPE_LONG = (2048, 2048, 32)
 
 # CrackleDeviceArray cutouts held against the same cutouts of the
 # oracle's decoded volume, as the text inside np.s_[...], in forms where
@@ -120,9 +138,14 @@ CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
 #              made from the seed (blocky_1024), compressed flat and with
 #              pins, each stream decompressed and checked against it; npy
 #              receives the volume as (sz, sy*sx), npz its statistics
+#   long:      [seed, shape, ckl, npy, json]: the long-slice volume
+#              (nuclei_volume) compressed flat into ckl, decompressed and
+#              checked against it; npy receives it as (sz, sy*sx), json
+#              the seconds of each step
 # Each step's end is logged to stderr with the seconds since the start.
-# The oracle runs the port's host engine only: flat streams through the
-# native stream decoder, pins streams through the numpy loop.
+# The oracle runs the port's host engine only (set_engine('numpy'), so
+# that no stream reaches the card): flat streams through the native
+# stream decoder, pins streams through the numpy loop.
 ORACLE = r"""
 import json
 import os
@@ -132,7 +155,40 @@ import numpy as np
 from crackle_tpu_torch import codec, native
 if not native.available():
   sys.exit("the native host decoder is missing")
+codec.set_engine("numpy")
 spec = json.loads(sys.argv[1])
+
+
+def nuclei_volume(sx, sy, sz, seed, pitch=24):
+  # nucleus-like ellipsoids on background 0: on a jittered pitch-pixel
+  # grid, every third slice from z = -5, a cell is skipped with
+  # probability 0.25, else an ellipsoid of xy radius r in [6, 10] and z
+  # half-extent hz in [2, 5] paints a new label into the background
+  # pixels of the disc of radius r * sqrt(1 - ((z - zc) / (hz + 0.5))^2)
+  # on each slice it spans (tests/test_torch_window.py has the same)
+  rng = np.random.RandomState(seed)
+  vol = np.zeros((sz, sy, sx), np.uint32)
+  label = 0
+  for z0 in range(-5, sz, 3):
+    for gy in range(0, sy, pitch):
+      for gx in range(0, sx, pitch):
+        if rng.rand() < 0.25:
+          continue
+        r = rng.randint(6, 11)
+        hz = rng.randint(2, 6)
+        cx = gx + pitch // 2 + rng.randint(-1, 2)
+        cy = gy + pitch // 2 + rng.randint(-1, 2)
+        zc = z0 + rng.randint(0, 3)
+        label += 1
+        y0, y1 = max(cy - r, 0), min(cy + r + 1, sy)
+        x0, x1 = max(cx - r, 0), min(cx + r + 1, sx)
+        d2 = ((np.arange(y0, y1) - cy)[:, None] ** 2
+              + (np.arange(x0, x1) - cx)[None, :] ** 2)
+        for z in range(max(zc - hz, 0), min(zc + hz + 1, sz)):
+          box = vol[z, y0:y1, x0:x1]
+          box[(d2 <= r * r * (1 - ((z - zc) / (hz + 0.5)) ** 2))
+              & (box == 0)] = label
+  return np.asfortranarray(vol.transpose(2, 1, 0))
 
 
 def read(path):
@@ -226,6 +282,27 @@ if "make1024" in spec:
   np.save(npy, np.ascontiguousarray(vol.transpose(2, 1, 0)).reshape(8, -1))
   np.savez(npz, **label_stats(vol))
   done("1024^2 x 8 flat and pins streams")
+if "long" in spec:
+  seed, shape, ckl, npy, js = spec["long"]
+  secs = {}
+  t = time.perf_counter()
+  vol = nuclei_volume(*shape, seed)
+  secs["make"] = time.perf_counter() - t
+  t = time.perf_counter()
+  binary = codec.compress(vol)
+  secs["compress"] = time.perf_counter() - t
+  t = time.perf_counter()
+  out = codec.decompress(binary)
+  secs["host_decode"] = time.perf_counter() - t
+  if codec.header(binary).label_format != 0 or not np.array_equal(out, vol):
+    sys.exit("the long-slice stream does not round-trip flat")
+  with open(ckl, "wb") as f:
+    f.write(binary)
+  np.save(npy, np.ascontiguousarray(vol.transpose(2, 1, 0)).reshape(
+    shape[2], -1))
+  with open(js, "w") as f:
+    json.dump(secs, f)
+  done("the long-slice volume")
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "crackle_tpu")]
 if loaded:
   sys.exit(f"the oracle imported the reference: {loaded}")
@@ -381,14 +458,16 @@ def read(path):
 
 
 def start_oracle(tmp):
-  """Start the host oracle in two child processes, the pins compress of
-  the 512^3 volume in one and the rest in the other; returns (the
-  processes, the paths they write)."""
+  """Start the host oracle in three child processes, the pins compress
+  of the 512^3 volume in one, the long-slice volume in another and the
+  rest in the third; returns (the processes, the paths they write)."""
   out = {name: os.path.join(tmp, f"{name}.npy") for name in
          ("512", "u64", "256", "mkv", "pins256")}
   out["pins512"] = os.path.join(tmp, "pins512.ckl")
   out["1024"] = [os.path.join(tmp, f) for f in (
     "flat1024.ckl", "pins1024.ckl", "vol1024.npy", "stats1024.npz")]
+  out["long"] = [os.path.join(tmp, f) for f in (
+    "long.ckl", "long.npy", "long.json")]
   out["stats"] = os.path.join(tmp, "stats512.npz")
   out["cutouts"] = [os.path.join(tmp, f"cut{i}.npy")
                     for i in range(len(CUTOUTS))]
@@ -401,6 +480,7 @@ def start_oracle(tmp):
      "stats": [VOL512, out["stats"]],
      "cutouts": [[src, key, dst] for (_, src, key), dst
                  in zip(CUTOUTS, out["cutouts"])]},
+    {"long": [SEED_LONG, SHAPE_LONG] + out["long"]},
   ]
   procs = [subprocess.Popen([sys.executable, "-c", ORACLE, json.dumps(spec)],
                             cwd=ROOT) for spec in specs]
@@ -787,8 +867,9 @@ def run(dev, card, kind, oracles, paths, t_or):
     if proc.wait(timeout=900) != 0:
       raise AssertionError(f"the host oracle failed ({proc.returncode})")
   t_or = time.perf_counter() - t_or
-  say(3, f"host oracle done in {t_or:.1f} s (two child processes: five "
-         "decodes, the 512^3 pins compress, label statistics, cutouts)")
+  say(3, f"host oracle done in {t_or:.1f} s (three child processes: five "
+         "decodes, the 512^3 pins compress, label statistics, cutouts, "
+         "the 1024^2 and long-slice volumes)")
 
   # kernel, plain and library-call times at the 512^3 slice shapes
   # (first 32 slices), and each kernel's bound on the same inputs
@@ -1119,6 +1200,17 @@ def run(dev, card, kind, oracles, paths, t_or):
   # 13: slices past one block's shared memory
   phase_1024(dev, paths["1024"], errs)
 
+  # 14: the window-decode entry points and codec.decompress on the card
+  launches["windows"] = phase_windows(dev, paths, [
+    ("512^3", b512, paths["512"]), ("u64 256^2x128", bu64, paths["u64"]),
+    ("u32 256^2x128", b256, paths["256"]),
+    ("markov-5 256^2x128", bmkv, paths["mkv"]),
+    ("pins 256^2x128", bpins, paths["pins256"]),
+    ("pins 512^3", bp512, paths["512"])])
+
+  # 15: the long-slice volume through the split and the gather paint
+  launches["long"] = phase_long(dev, paths["long"], errs)
+
   check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
@@ -1180,6 +1272,279 @@ def phase_1024(dev, paths, errs):
   say(13, f"1024^2 x 8 analytics of {len(orc['uniq'])} labels on the card "
           f"(slice_stats launched 3 times): voxel_counts and bounding_boxes "
           f"equal to the numpy oracle, centroids within rtol 1e-12")
+
+
+class HostDeclines(logging.Handler):
+  """Records every decline the engine logs (engine._fallback) while it
+  is entered. require_none fails on any decline but decode_window_device's
+  of a long window, which sends decode_window to the split on the card
+  (the reference's own route, engine.py:700-712)."""
+
+  def __enter__(self):
+    logging.Handler.__init__(self, logging.WARNING)
+    self.seen = []
+    eng.logger.addHandler(self)
+    return self
+
+  def emit(self, record):
+    self.seen.append(record.getMessage())
+
+  def __exit__(self, *exc):
+    eng.logger.removeHandler(self)
+
+  def require_none(self, path):
+    host = [m for m in self.seen if not m.startswith("decode_window_device:")]
+    if host:
+      raise AssertionError(f"the {path} path ended on the host codec: {host}")
+    return (f"{path}: no call ended on the host codec "
+            f"({len(self.seen)} decode_window_device declines)")
+
+
+def window_labels(binary):
+  """Two labels of the stream (its first and last) and one absent."""
+  uniq = pcodec.labels(binary)
+  return [int(uniq[0]), int(uniq[-1]), int(uniq.max()) + 1]
+
+
+def phase_windows(dev, paths, streams):
+  """decode_window of each stream, whole, on [3, 7) and on its last slice,
+  label= masks on the flat streams, and codec.decompress under
+  set_engine('torch'), against the oracle's volumes (sz, sy*sx); every
+  call must stay on the card. Returns the launch counts."""
+  ct.reset_launches()
+  with HostDeclines() as declines:
+    for tag, binary, npy in streams:
+      want = np.load(npy, mmap_mode="r")
+      head = pcodec.header(binary)
+      sz = head.sz
+      ms = []
+      for z0, z1 in ((0, sz), (3, 7), (sz - 1, sz)):
+        t0 = time.perf_counter()
+        got = ct.decode_window(binary, z0, z1, device=dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if got is None:
+          raise AssertionError(f"{tag} decode_window({z0}, {z1}) declined")
+        require_volume(f"{tag} decode_window({z0}, {z1})", got, want[z0:z1],
+                       head)
+      masks = []
+      if head.label_format == 0:
+        for label in window_labels(binary):
+          got = ct.decode_window(binary, 0, sz, label=label, device=dev)
+          require_volume(f"{tag} label={label}", got, want == label, head)
+          masks.append(f"{label} ({int(got.sum())} voxels)")
+      pcodec.set_engine("torch", device=dev)
+      try:
+        t0 = time.perf_counter()
+        got = pcodec.decompress(binary)
+        t_codec = (time.perf_counter() - t0) * 1e3
+        require_volume(f"{tag} decompress under torch", got, want, head)
+        if masks:
+          label = window_labels(binary)[0]
+          require_volume(f"{tag} decompress(label={label}) under torch",
+                         pcodec.decompress(binary, label=label),
+                         want == label, head)
+      finally:
+        pcodec.set_engine("auto")
+      say(14, f"{tag}: decode_window whole, [3, 7) and [{sz - 1}, {sz}) "
+              f"equal to the oracle (first calls {', '.join(f'{m:.3f}' for m in ms)} ms); "
+              + (f"label= masks of {', '.join(masks)} equal; " if masks else
+                 "label= queries of pins streams stay on the host as in the "
+                 "reference (engine.py:671-672), not run; ")
+              + f"codec.decompress under set_engine('torch') equal "
+                f"({t_codec:.3f} ms)")
+  say(14, declines.require_none("window-decode"))
+  launched = dict(ct.LAUNCHES)
+  say(14, f"window-decode launches {launched}")
+  missing = sorted({k for k in PATHS["pins"] + PATHS["flat"]
+                    if launched[k] <= 0})
+  if missing:
+    raise AssertionError(f"kernels not launched by the window decodes: "
+                         f"{missing}")
+  return launched
+
+
+def require_volume(what, got, want, head):
+  """got: decode_window's (sx, sy, B) volume; want: (B, sy*sx) rows."""
+  if got.dtype != want.dtype:
+    raise AssertionError(f"{what}: dtype {got.dtype}, want {want.dtype}")
+  if got.flags.f_contiguous != bool(head.fortran_order) and got.ndim == 3 \
+     and min(got.shape) > 1:
+    raise AssertionError(f"{what}: not in the header's memory order")
+  rows = got.transpose(2, 1, 0).reshape(got.shape[2], -1)
+  if not np.array_equal(rows, want):
+    bad = np.flatnonzero((rows != want).any(axis=1))
+    raise AssertionError(f"{what}: differs on {len(bad)} slices, first "
+                         f"{bad[0]}")
+
+
+def phase_long(dev, paths, errs):
+  """The long-slice volume: its sizes against the device limits, the
+  kernels against their plain versions at its shapes (its first four
+  slices' pieces), decode_window(check_crcs=True) and
+  decode_window_ccl_device against the oracle and the stored CRCs, the
+  launches, throughput beside the oracle's host decode, stage times and
+  the device memory high-water mark. Returns the launch counts."""
+  ckl, npy, js = paths
+  binary = read(ckl)
+  with open(js) as f:
+    secs = json.load(f)
+  head = pcodec.header(binary)
+  sx, sy, sz = head.sx, head.sy, head.sz
+  inputs = eng.prepare_slice_inputs(binary, 0, sz)
+  cps = inputs["nbytes"].astype(np.int64) * 4 - 3
+  uniq, cum, keys = eng._flat_label_tables(head, binary)
+  n_per = cum[1:] - cum[:-1]
+  t0 = time.perf_counter()
+  split, piece_z = eng.prepare_split_inputs(binary, 0, sz)
+  t_split = time.perf_counter() - t0
+  P = len(piece_z)
+  if cps.min() <= eng.MAX_DEVICE_CAP or n_per.min() <= ccl.PAINT_CAP_N \
+     or P <= sz:
+    raise AssertionError(f"long-slice volume: codepoints {cps.min()}, "
+                         f"components {n_per.min()}, pieces {P}")
+  say(15, f"long-slice volume {sx}x{sy}x{sz} ({len(binary)} bytes; oracle: "
+          f"made {secs['make']:.3f} s, compressed {secs['compress']:.3f} s, "
+          f"host decode {secs['host_decode']:.3f} s = "
+          f"{sx * sy * sz / secs['host_decode'] / 1e6:.1f} MVx/s): "
+          f"{cps.min()}-{cps.max()} codepoints a slice (MAX_DEVICE_CAP "
+          f"{eng.MAX_DEVICE_CAP}), {n_per.min()}-{n_per.max()} components a "
+          f"slice (PAINT_CAP_N {ccl.PAINT_CAP_N}), {P} pieces of at most "
+          f"{split['packed'].shape[1] * 4} codepoints "
+          f"(prepare_split_inputs {t_split:.3f} s)")
+
+  # the kernels against their plain versions on the first four slices'
+  # pieces: the pieces' shapes, the merged rows and the 2048^2 slices
+  k = int(np.searchsorted(piece_z, 4))
+  sub = {key: split[key][:k] for key in ("packed", "nbytes", "nodes",
+                                         "n_chains")}
+  t = eng.params_from_jax(sub, device=dev, piece_z=piece_z[:k])
+  perm = head.crack_format == ct.CrackFormat.PERMISSIBLE
+  ev, cls, dr = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  evp, clsp, drp = replay.replay_keys_plain(t["packed"], t["nbytes"],
+                                            t["n_chains"])
+  errs["replay_keys"] = max(errs["replay_keys"],
+                            require_equal("long event words", ev, evp),
+                            require_equal("long cls", cls, clsp),
+                            require_equal("long depth ranges", dr, drp))
+  ids = replay.replay_positions(evp, clsp, drp, t["nodes"], sx, sy)
+  errs["replay_positions"] = max(errs["replay_positions"], require_equal(
+    "long edge ids", ids, replay.replay_positions_plain(
+      evp, clsp, drp, t["nodes"], sx, sy)))
+  rows = dec.slice_rows(ids, t["piece_z"], 4)
+  v = replay.paint_vcg(rows, sx, sy, perm)
+  errs["paint_vcg"] = max(errs["paint_vcg"], require_equal(
+    "long vcg", v, replay.paint_vcg_plain(rows, sx, sy, perm)))
+  cc, N, _ = ccl.ccl_paint(v)
+  ccp, Np, _ = ccl.ccl_paint_plain(v)
+  errs["ccl_paint"] = max(errs["ccl_paint"],
+                          require_equal("long cc", cc, ccp),
+                          require_equal("long N", N, Np))
+  stored = eng._stored_crcs(head, binary, dev)
+  eng.crc_gate(cc, stored[:4], 0)
+  say(15, f"kernels bit-equal to their plain versions on the first 4 "
+          f"slices: {k} pieces ({tuple(t['packed'].shape)} packed bytes), "
+          f"merged rows {tuple(rows.shape)}, paint_vcg in "
+          f"{-(-sx * sy // replay.paint_band_px(sx, sy))} bands, ccl_paint "
+          f"on (4, {sy}, {sx}); cc passes the stored CRCs")
+  del t, ev, cls, dr, evp, clsp, drp, ids, rows, v, cc, N, ccp, Np
+
+  want = np.load(npy)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  ct.reset_launches()
+  with HostDeclines() as declines:
+    t0 = time.perf_counter()
+    vol = ct.decode_window(binary, 0, sz, check_crcs=True, device=dev)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    launched = dict(ct.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() - base
+    if vol is None:
+      raise AssertionError("decode_window declined the long-slice volume")
+    require_volume("long decode_window(0, 32)", vol, want, head)
+    del vol
+    res = ct.decode_window_ccl_device(binary, 0, sz, dev)
+    if res is None:
+      raise AssertionError("decode_window_ccl_device declined the long-slice "
+                           "volume")
+    cc, N, _ = res
+    eng.crc_gate(cc, stored, 0)
+    if N.cpu().numpy().tolist() != n_per.tolist():
+      raise AssertionError("decode_window_ccl_device: N differs from the "
+                           "stream's component counts")
+    w = ct.decode_window(binary, 5, 9, device=dev)
+    require_volume("long decode_window(5, 9)", w, want[5:9], head)
+    label = int(want[7, sx * sy // 2 + sx // 2]) or int(uniq[1])
+    m = ct.decode_window(binary, 0, sz, label=label, device=dev)
+    require_volume(f"long label={label}", m, want == label, head)
+    del w, m
+  say(15, declines.require_none("long-slice"))
+  say(15, f"decode_window(0, {sz}, check_crcs=True) through "
+          f"decode_window_ccl_device's split ({P} pieces) and the gather "
+          f"paint equal to the oracle, first call {t_first:.3f} s; "
+          f"decode_window_ccl_device's cc passes the stored CRCs and its N "
+          f"equals the stream's counts; decode_window(5, 9) and the mask of "
+          f"label {label} equal; launches {launched}; device memory "
+          f"high-water mark {peak} bytes ({peak / 2 ** 30:.3f} GiB) above "
+          f"{base} bytes held before")
+  missing = [k for k in ("replay_keys", "replay_positions", "paint_vcg",
+                         "ccl_paint") if launched[k] <= 0]
+  if missing:
+    raise AssertionError(f"kernels not launched on the long path: {missing}")
+  ms = wall_ms(lambda: ct.decode_window(binary, 0, sz, check_crcs=True,
+                                         device=dev), 3)
+  mean = sum(ms) / len(ms)
+  say(15, f"steady long-slice decode_window(0, {sz}, check_crcs=True) ms: "
+          + ", ".join(f"{x:.3f}" for x in ms)
+          + f"; mean {mean:.3f} ms, {sx * sy * sz / mean / 1e3:.1f} MVx/s "
+            f"(host oracle's decode {secs['host_decode'] * 1e3:.3f} ms, "
+            f"{sx * sy * sz / secs['host_decode'] / 1e6:.1f} MVx/s)")
+  say(15, long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys,
+                          dev))
+  return launched
+
+
+def long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys, dev):
+  """Host and device times of each stage of the long-slice decode."""
+  sx, sy, sz = head.sx, head.sy, head.sz
+  perm = head.crack_format == ct.CrackFormat.PERMISSIBLE
+  host = {}
+  t0 = time.perf_counter()
+  eng.prepare_slice_inputs(binary, 0, sz)
+  host["prepare_slice_inputs"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  eng.prepare_split_inputs(binary, 0, sz)
+  host["prepare_split_inputs"] = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  eng._flat_label_tables(head, binary)
+  host["label tables"] = time.perf_counter() - t0
+  t = eng.params_from_jax(split, device=dev, piece_z=piece_z)
+  ids = dec._edge_ids(t["packed"], t["nbytes"], t["nodes"], t["n_chains"],
+                      sx, sy)
+  rows = dec.slice_rows(ids, t["piece_z"], sz)
+  vcg = replay.paint_vcg(rows, sx, sy, perm)
+  off, k64, u32 = eng._gather_tables(uniq, cum, keys, 0, sz, dev)
+  stored = eng._stored_crcs(head, binary, dev)
+  labels = dec.paint_labels_u32(cc, off, k64, u32)
+  dev_ms = {
+    "replay (pieces)": cuda_ms(lambda: dec._edge_ids(
+      t["packed"], t["nbytes"], t["nodes"], t["n_chains"], sx, sy), 3),
+    "slice_rows": cuda_ms(lambda: dec.slice_rows(ids, t["piece_z"], sz), 3),
+    "paint_vcg": cuda_ms(lambda: replay.paint_vcg(rows, sx, sy, perm), 3),
+    "ccl_paint": cuda_ms(lambda: ccl.ccl_paint(vcg), 3),
+    "crc32c": cuda_ms(lambda: eng.crc_gate(cc, stored, 0), 3),
+    "paint_labels_u32": cuda_ms(lambda: dec.paint_labels_u32(
+      cc, off, k64, u32), 3),
+  }
+  copy = wall_ms(lambda: eng._host_volume(labels, head, sz), 3)
+  return (f"long-slice stages: host s " + ", ".join(
+    f"{k} {v:.3f}" for k, v in host.items())
+    + "; device ms (CUDA events, mean of 3) " + ", ".join(
+      f"{k} {v:.3f}" for k, v in dev_ms.items())
+    + f"; labels to the host {sum(copy) / len(copy):.3f} ms (host clock); "
+      f"merged rows {tuple(rows.shape)}, paint in "
+      f"{-(-sx * sy // replay.paint_band_px(sx, sy))} bands")
 
 
 def check_analytics(orc, vc, cen, bb):

@@ -9,6 +9,10 @@ of crackle_tpu and nothing of JAX.
   stream = upload_stream(binary, torch.device("cuda"))  # flat or pins
   labels, cc, N = stream.decode_window(0, stream.head.sz, check_crcs=True)
 
+  vol = decode_window(binary, 0, 64)          # host numpy, decoded on the card
+  mask = decode_window(binary, 0, 64, label=7)
+  set_engine("torch")                         # codec.decompress on the card
+
   arr = CrackleDeviceArray(binary, "cuda")
   cutout = arr[100:300, 50:450, 200:264]  # a uint32/uint64 CUDA tensor
   counts = arr.voxel_counts()             # stats kernel on the card
@@ -17,27 +21,31 @@ On a CUDA tensor each kernel wrapper launches its kernel (or raises);
 on a CPU tensor it runs the kernel's plain PyTorch version.
 """
 from .array import CrackleDeviceArray
+from .codec import get_engine, set_engine
 from .kernels._build import LAUNCHES, reset_launches
 from .kernels.ccl import (
   ccl_min, ccl_paint, ccl_paint_v2, plant, roots_from_tgt,
 )
 from .kernels.decode import (
-  decode_slices_full_pins, decode_slices_full_plant, decode_slices_to_ccl,
+  decode_slices_full, decode_slices_full_pins, decode_slices_full_plant,
+  decode_slices_to_ccl,
 )
 from .kernels.engine import (
-  CrackFormat, DeviceStream, FormatError, decode_window_ccl_device,
-  params_from_jax, prepare_slice_inputs, upload_stream,
+  CrackFormat, DeviceStream, FormatError, decode_window, decode_window_ccl,
+  decode_window_ccl_device, decode_window_device, params_from_jax,
+  prepare_slice_inputs, prepare_split_inputs, upload_stream,
 )
 from .kernels.replay import paint_vcg, replay_keys, replay_positions
 from .kernels.stats import slice_stats
 from .ops.analytics import bounding_boxes, centroids, voxel_counts
 
 __all__ = [
-  "CrackleDeviceArray", "LAUNCHES", "reset_launches", "ccl_min",
-  "ccl_paint", "ccl_paint_v2", "plant", "roots_from_tgt",
-  "decode_slices_full_pins", "decode_slices_full_plant",
-  "decode_slices_to_ccl", "CrackFormat", "DeviceStream", "FormatError",
-  "decode_window_ccl_device", "params_from_jax", "prepare_slice_inputs",
-  "upload_stream", "paint_vcg", "replay_keys", "replay_positions",
+  "CrackleDeviceArray", "get_engine", "set_engine", "LAUNCHES",
+  "reset_launches", "ccl_min", "ccl_paint", "ccl_paint_v2", "plant",
+  "roots_from_tgt", "decode_slices_full", "decode_slices_full_pins",
+  "decode_slices_full_plant", "decode_slices_to_ccl", "CrackFormat",
+  "DeviceStream", "FormatError", "decode_window", "decode_window_ccl",
+  "decode_window_ccl_device", "decode_window_device", "params_from_jax",
+  "prepare_slice_inputs", "prepare_split_inputs", "upload_stream", "paint_vcg", "replay_keys", "replay_positions",
   "slice_stats", "bounding_boxes", "centroids", "voxel_counts",
 ]

@@ -1,10 +1,10 @@
 """Compress / decompress / decompression-free queries for .ckl streams.
 
 Host orchestration layer (reference parity: crackle/codec.py,
-src/crackle.hpp). The port's copy of crackle_tpu/codec.py with its
-host engine only: byte plumbing stays on host, per-voxel work runs
-through the native library or the vectorized numpy ops. Device decode
-is crackle_tpu_torch.kernels.engine.
+src/crackle.hpp). The port's copy of crackle_tpu/codec.py: byte
+plumbing stays on host, per-voxel work runs through the native library
+or the vectorized numpy ops, and decompress reaches the torch decode
+engine (crackle_tpu_torch.kernels.engine) as set_engine selects.
 """
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 from collections import namedtuple
@@ -22,6 +22,36 @@ from .ops.ccl import color_connectivity_graph_slice
 from .models import markov as _markov
 
 PinTuple = namedtuple('Pin', ['index', 'depth'])
+
+# Decode engine selection (the reference's set_engine, codec.py:29-52,
+# with 'torch' for its 'jax'): 'auto' takes the torch engine on the
+# card when torch.cuda.is_available(), after the native decoder for
+# flat streams; 'numpy' forces the host engine; 'torch' forces the
+# torch engine on its device (the card unless set_engine names another).
+_ENGINE = 'auto'
+_DEVICE = 'cuda'
+
+
+def set_engine(engine: str, device="cuda") -> None:
+  """Select the decode engine, and the torch engine's device."""
+  global _ENGINE, _DEVICE
+  if engine not in ('auto', 'numpy', 'torch'):
+    raise ValueError(f"engine must be auto|numpy|torch, got {engine}")
+  _ENGINE = engine
+  _DEVICE = device
+
+
+def get_engine() -> str:
+  return _ENGINE
+
+
+def _torch_engine_enabled() -> bool:
+  if _ENGINE == 'numpy':
+    return False
+  if _ENGINE == 'torch':
+    return True
+  import torch
+  return torch.cuda.is_available()
 
 
 # ---------------------------------------------------------------------------
@@ -450,21 +480,42 @@ def _full_decode(binary: bytes, z_start: int, z_end: int,
                  label: Optional[int] = None) -> np.ndarray:
   """Decode of a z window (crackle.hpp decompress parity).
 
-  The native C++ stream decoder goes first: it produces the array in
-  place with crcs checked. Pins and label-query streams, which it
-  rejects, take the numpy loop below.
+  The destination is host memory, so in auto mode the native C++
+  stream decoder goes first: it produces the array in place with crcs
+  checked, where the torch engine would decode on the card and then
+  copy the volume back. The pins, markov and label-query streams that
+  it rejects go to the torch engine (engine.decode_window) where it is
+  enabled, and set_engine('torch') sends every stream there first.
+  Where the engine declines, the reason is logged and the host path
+  below takes the window.
   """
   head = header(binary)
 
-  if label is None and head.label_format == LabelFormat.FLAT:
+  def _native():
+    if label is not None or head.label_format != LabelFormat.FLAT:
+      return None
     from . import native
     try:
-      out = native.decompress_stream(
+      return native.decompress_stream(
         binary, z_start, z_end, (head.sx, head.sy, head.sz),
         head.data_width, head.fortran_order,
       )
     except ValueError as e:
       raise FormatError(str(e))
+
+  if _ENGINE != 'torch':
+    out = _native()
+    if out is not None:
+      return out
+  if _torch_engine_enabled():
+    from .kernels import engine as _engine
+    out = _engine.decode_window(binary, z_start, z_end, label=label,
+                                device=_DEVICE)
+    if out is not None:
+      return out
+    _engine._fallback("decompress", "the torch engine declined the window")
+  if _ENGINE == 'torch':
+    out = _native()
     if out is not None:
       return out
   sx, sy = head.sx, head.sy

@@ -1,8 +1,11 @@
 """Batched slice decode on a torch device.
 
 Counterpart of crackle_tpu/kernels/decode.py: packed crack streams ->
-VCG (replay kernels) -> first-visit CCL and label paint (CCL kernels).
-Inputs are the tensors of engine.prepare_slice_inputs on one device:
+VCG (replay kernels) -> first-visit CCL and label paint (CCL kernels,
+or the gather paint past PAINT_CAP_N components a slice), and the split
+decode of slices longer than the device capacity. Inputs are the
+tensors of engine.prepare_slice_inputs (or prepare_split_inputs, one
+row a piece) on one device:
 
   packed:   (B, CAP_B) uint8  packed move bytes (BOC stripped)
   nbytes:   (B,)       int32  valid byte count per slice
@@ -15,28 +18,75 @@ from . import ccl as _ccl
 from . import replay as _replay
 
 
-def _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx: int, sy: int,
-                 permissible: bool):
-  """VCG (B, sy, sx) int32, crack-format complement applied, through
-  the three replay kernels, or with replay.CANCEL_COMPACT through the
-  compact-cancel kernels in place of replay_positions (the same edge
-  ids), which read the events as the reference's sorted keys."""
+def _edge_ids(packed, nbytes, nodes, n_chains, sx: int, sy: int):
+  """Edge ids (B, CAP) int32 through replay_keys and replay_positions,
+  or with replay.CANCEL_COMPACT through the compact-cancel kernels in
+  place of replay_positions (the same edge ids), which read the events
+  as the reference's sorted keys."""
   ev, cls, drange = _replay.replay_keys(packed, nbytes, n_chains)
   if _replay.CANCEL_COMPACT:
     skeys = _replay.sorted_keys(ev, cls)
     dense = _replay.cancel_sums(skeys)
     tables = _replay.compact_closes(
       dense, _replay.close_cap(skeys.shape[1], nodes.shape[1]))
-    ids = _replay.replay_positions_compact(cls, tables, nodes, sx, sy)
-  else:
-    ids = _replay.replay_positions(ev, cls, drange, nodes, sx, sy)
-  return _replay.paint_vcg(ids, sx, sy, permissible)
+    return _replay.replay_positions_compact(cls, tables, nodes, sx, sy)
+  return _replay.replay_positions(ev, cls, drange, nodes, sx, sy)
+
+
+def _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx: int, sy: int,
+                 permissible: bool):
+  """VCG (B, sy, sx) int32, crack-format complement applied, through
+  the three replay kernels."""
+  return _replay.paint_vcg(_edge_ids(packed, nbytes, nodes, n_chains, sx,
+                                     sy), sx, sy, permissible)
 
 
 def decode_slices_to_ccl(packed, nbytes, nodes, n_chains, sx: int,
                          sy: int, permissible: bool):
   """Returns (cc (B, sy*sx) int32, N (B,) int32)."""
   vcg = _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx, sy, permissible)
+  cc, N, _ = _ccl.ccl_paint(vcg)
+  return cc, N
+
+
+def slice_rows(ids, piece_z, B: int):
+  """Piece edge ids (P, CAP) int32 -> (B, kmax * CAP) int32 rows, row b
+  holding the ids of every piece of slice b side by side and -1 after
+  them (kmax: the most pieces of one slice). piece_z (P,) is each
+  piece's slice, in order. paint_vcg takes ids in any order and sets the
+  bit of each, so painting a row paints the bitwise OR of its pieces'
+  edge bits: the reference merges them with a max
+  (engine.py:249-250), which loses bits where two pieces set different
+  ones of one pixel."""
+  P, CAP = ids.shape
+  pz = piece_z.to(torch.int64)
+  if P and bool((pz[1:] < pz[:-1]).any()):
+    raise ValueError("slice_rows: piece_z is not in slice order")
+  counts = torch.bincount(pz, minlength=B)
+  kmax = max(int(counts.max()), 1) if B else 1
+  slot = torch.arange(P, device=ids.device) - (
+    torch.cumsum(counts, 0) - counts)[pz]
+  rows = torch.full((B, kmax, CAP), -1, dtype=torch.int32,
+                    device=ids.device)
+  rows[pz, slot] = ids
+  return rows.reshape(B, kmax * CAP)
+
+
+def decode_pieces_to_vcg(packed, nbytes, nodes, n_chains, piece_z, B: int,
+                         sx: int, sy: int, permissible: bool):
+  """VCG (B, sy, sx) int32 of B slices split into P chain-aligned pieces:
+  the pieces replay as rows of their own and each slice is painted from
+  the edge ids of all its pieces (slice_rows)."""
+  ids = _edge_ids(packed, nbytes, nodes, n_chains, sx, sy)
+  return _replay.paint_vcg(slice_rows(ids, piece_z, B), sx, sy, permissible)
+
+
+def decode_pieces_to_ccl(packed, nbytes, nodes, n_chains, piece_z, B: int,
+                         sx: int, sy: int, permissible: bool):
+  """The split decode of B slices (the reference's _split_ccl_step,
+  engine.py:241-253). Returns (cc (B, sy*sx) int32, N (B,) int32)."""
+  vcg = decode_pieces_to_vcg(packed, nbytes, nodes, n_chains, piece_z, B,
+                             sx, sy, permissible)
   cc, N, _ = _ccl.ccl_paint(vcg)
   return cc, N
 
@@ -126,3 +176,31 @@ def decode_slices_full_pins(packed, nbytes, nodes, n_chains, pin_locs,
     painted = torch.gather(
       T, 1, torch.clamp(cc.to(torch.int64), 0, cap_n))
   return painted.contiguous().view(torch.uint32), cc, N
+
+
+def paint_keys(cc, key_offsets, keys):
+  """cc (B, n) window-local component ids -> uniq-index keys (B, n)
+  int64 (decode.py:546-550, whose N argument is unused):
+  keys[cc + key_offsets[:, None]], the indices clamped to the table as
+  the reference's gather clamps them. key_offsets (B,) and keys are
+  int64."""
+  idx = cc.to(torch.int64) + key_offsets[:, None]
+  return keys[idx.clamp_(0, keys.shape[0] - 1)]
+
+
+def paint_labels_u32(cc, key_offsets, keys, uniq32):
+  """The gather paint (decode.py:553-557): labels (B, n) uint32 =
+  uniq[keys[cc + key_offsets]], uniq32 the labels' int32 bits."""
+  return uniq32[paint_keys(cc, key_offsets, keys)].view(torch.uint32)
+
+
+def decode_slices_full(packed, nbytes, nodes, n_chains, key_offsets, keys,
+                       uniq32, sx: int, sy: int, permissible: bool):
+  """Decode straight to labels of at most 32 bits through the gather
+  paint, for slices of any component count (decode.py:525-543).
+  key_offsets (B,) int64: each slice's first component in keys; keys
+  int64: component -> uniq index; uniq32: the labels' int32 bits.
+  Returns (labels (B, sy*sx) uint32, cc int32, N int32)."""
+  cc, N = decode_slices_to_ccl(packed, nbytes, nodes, n_chains, sx, sy,
+                               permissible)
+  return paint_labels_u32(cc, key_offsets, keys, uniq32), cc, N

@@ -5,7 +5,10 @@ condensed-pins streams: parses the container sections with the port's
 host layer (its copy of the reference's), pads the per-slice crack
 streams and pin tables into fixed-shape tensors, parks them on a torch
 device as a DeviceStream, and decodes windows there with the kernels of
-this package.
+this package. Slices longer than MAX_DEVICE_CAP codepoints split at
+chain boundaries into pieces (prepare_split_inputs); decode_window is
+the whole-window entry point that codec.decompress reaches under
+set_engine('torch').
 """
 import logging
 import os
@@ -42,7 +45,7 @@ def _next_pow2(x: int) -> int:
 
 
 # the reference's codepoint capacity for a device window (engine.py's
-# MAX_DEVICE_CAP default); longer slices are declined
+# MAX_DEVICE_CAP default); longer slices split into chain-aligned pieces
 MAX_DEVICE_CAP = 1 << 17
 
 
@@ -50,20 +53,12 @@ def _device_cap_ok(inputs) -> bool:
   return inputs["packed"].shape[1] * 4 <= MAX_DEVICE_CAP
 
 
-def _prep_one(code: bytes, head, model):
-  """One slice's crack code -> (packed move bytes, chain start nodes).
-  Markov streams rank-decode on the host and re-pack as 2-bit diffs;
-  zero-pad diffs in the last byte replicate the final codepoint, which
-  never forms a branch/terminate pair, so the replay drops them like
-  sub-byte padding."""
-  if len(code) == 0:
-    return b'', np.zeros(0, np.int64)
-  index_size = 4 + ctoi(code, 0, 4)
-  nodes = _cc.read_boc_index(code, head.sx, head.sy)
-  if model is None:
-    return code[index_size:], nodes
-  cps = _markov.decode_markov(
-    code[index_size:], model, head.markov_model_order).astype(np.int64)
+def _pack_diffs(cps: np.ndarray) -> bytes:
+  """Codepoints -> packed 2-bit diff bytes, the first codepoint
+  absolute. Zero-pad diffs in the last byte replicate the final
+  codepoint, which never forms a branch/terminate pair, so the replay
+  drops them like sub-byte padding."""
+  cps = cps.astype(np.int64)
   diffs = cps.copy()
   diffs[1:] = (cps[1:] - cps[:-1]) & 3
   pad = (-len(diffs)) % 4
@@ -72,7 +67,40 @@ def _prep_one(code: bytes, head, model):
   q = diffs.reshape(-1, 4)
   by = (q[:, 0] | (q[:, 1] << 2) | (q[:, 2] << 4)
         | (q[:, 3] << 6)).astype(np.uint8)
-  return by.tobytes(), nodes
+  return by.tobytes()
+
+
+def _prep_one(code: bytes, head, model):
+  """One slice's crack code -> (packed move bytes, chain start nodes).
+  Markov streams rank-decode on the host and re-pack as 2-bit diffs."""
+  if len(code) == 0:
+    return b'', np.zeros(0, np.int64)
+  index_size = 4 + ctoi(code, 0, 4)
+  nodes = _cc.read_boc_index(code, head.sx, head.sy)
+  if model is None:
+    return code[index_size:], nodes
+  return _pack_diffs(_markov.decode_markov(
+    code[index_size:], model, head.markov_model_order)), nodes
+
+
+def _pad_rows(head, prepped):
+  """[(packed bytes, nodes), ...] -> the padded numpy inputs dict."""
+  B = len(prepped)
+  max_bytes = max((len(p) for p, _ in prepped), default=0)
+  max_chains = max((len(n) for _, n in prepped), default=0)
+  CAP_B = _next_pow2(max(max_bytes, 4))
+  CAP_CH = _next_pow2(max(max_chains, 2))
+  packed = np.zeros((B, CAP_B), np.uint8)
+  nbytes = np.zeros(B, np.int32)
+  nodes = np.zeros((B, CAP_CH), np.int32)
+  n_chains = np.zeros(B, np.int32)
+  for i, (p, nd) in enumerate(prepped):
+    packed[i, :len(p)] = np.frombuffer(p, np.uint8)
+    nbytes[i] = len(p)
+    nodes[i, :len(nd)] = nd
+    n_chains[i] = len(nd)
+  return {"head": head, "packed": packed, "nbytes": nbytes,
+          "nodes": nodes, "n_chains": n_chains}
 
 
 def prepare_slice_inputs(binary: bytes, z_start: int, z_end: int):
@@ -91,22 +119,72 @@ def prepare_slice_inputs(binary: bytes, z_start: int, z_end: int):
       prepped = list(pool.map(lambda c: _prep_one(c, head, model), codes))
   else:
     prepped = [_prep_one(c, head, model) for c in codes]
+  return _pad_rows(head, prepped)
 
-  max_bytes = max((len(p) for p, _ in prepped), default=0)
-  max_chains = max((len(n) for _, n in prepped), default=0)
-  CAP_B = _next_pow2(max(max_bytes, 4))
-  CAP_CH = _next_pow2(max(max_chains, 2))
-  packed = np.zeros((B, CAP_B), np.uint8)
-  nbytes = np.zeros(B, np.int32)
-  nodes = np.zeros((B, CAP_CH), np.int32)
-  n_chains = np.zeros(B, np.int32)
-  for i, (p, nd) in enumerate(prepped):
-    packed[i, :len(p)] = np.frombuffer(p, np.uint8)
-    nbytes[i] = len(p)
-    nodes[i, :len(nd)] = nd
-    n_chains[i] = len(nd)
-  return {"head": head, "packed": packed, "nbytes": nbytes,
-          "nodes": nodes, "n_chains": n_chains}
+
+# pieces of a split slice hold at most this many codepoints (the
+# reference's SPLIT_TARGET_CPS, engine.py:136)
+SPLIT_TARGET_CPS = 1 << 16
+
+
+def _split_slice_stream(code: bytes, nodes: np.ndarray, max_cps: int):
+  """Split one slice's packed move stream (BOC stripped) at chain
+  boundaries into pieces of at most max_cps codepoints
+  (engine.py:139-180).
+
+  Chains replay independently, each from its own start node with a
+  scope of its own, and the codepoint at a chain start never is a
+  pair-second (it follows one), so a piece whose first codepoint is
+  re-based as absolute classifies exactly as it did in the stream.
+  Returns [(packed bytes, nodes of the piece), ...], or None where one
+  chain alone exceeds max_cps."""
+  cps = _cc.unpack_codepoints(code, 0)
+  s, kind = _cc.classify_codepoints(cps)
+  ends, ok = _cc.segment_chains(kind, s, len(nodes))
+  if not ok:
+    return None
+  starts = np.concatenate([[0], ends[:-1] + 2]).astype(np.int64)
+  bounds = np.concatenate([starts, [ends[-1] + 2]]).astype(np.int64)
+  n_chains = len(nodes)
+  pieces = []
+  i = 0
+  while i < n_chains:
+    # the largest j with bounds[j] - bounds[i] <= max_cps
+    j = min(int(np.searchsorted(bounds, bounds[i] + max_cps,
+                                side='right')) - 1, n_chains)
+    if j <= i:
+      return None
+    pieces.append((_pack_diffs(cps[bounds[i]:bounds[j]]), nodes[i:j]))
+    i = j
+  return pieces
+
+
+def prepare_split_inputs(binary: bytes, z_start: int, z_end: int,
+                         max_cps: int = 0):
+  """prepare_slice_inputs for windows whose slices exceed the device
+  capacity (engine.py:183-238): each slice longer than max_cps
+  codepoints (default min(SPLIT_TARGET_CPS, MAX_DEVICE_CAP)) becomes
+  chain-aligned pieces, one row each. Returns (the inputs dict over the
+  P pieces, piece_z (P,) int32 window-local slice of each piece, in
+  order), or None for a markov stream or where one chain alone exceeds
+  max_cps."""
+  head = _codec.header(binary)
+  if head.markov_model_order > 0:
+    return None
+  if not max_cps:
+    max_cps = min(SPLIT_TARGET_CPS, MAX_DEVICE_CAP)
+  prepped, piece_z = [], []
+  for wz, code in enumerate(_codec.crack_codes(binary)[z_start:z_end]):
+    body, nodes = _prep_one(code, head, None)
+    if len(body) * 4 <= max_cps:
+      pieces = [(body, nodes)]
+    else:
+      pieces = _split_slice_stream(body, nodes, max_cps)
+      if pieces is None:
+        return None
+    prepped += pieces
+    piece_z += [wz] * len(pieces)
+  return _pad_rows(head, prepped), np.asarray(piece_z, np.int32)
 
 
 def _flat_label_tables(head, binary):
@@ -222,13 +300,15 @@ def _i32(a, dev):
   return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
 
 
-def params_from_jax(inputs, T=None, device="cpu", pins=None):
+def params_from_jax(inputs, T=None, device="cpu", pins=None, piece_z=None):
   """Carry the reference's decode state across: the numpy arrays of
-  crackle_tpu.kernels.engine.prepare_slice_inputs (or this module's),
-  plus an optional plant table T, and optional pins tables (the tuple
-  of crackle_tpu.kernels.engine._pins_device_tables, or this module's),
-  as tensors on `device`. The pins come back as (pin_locs, pin_labs,
-  single_ids, single_labs, bg32, cap_n) under "pins"."""
+  crackle_tpu.kernels.engine.prepare_slice_inputs or
+  prepare_split_inputs (or this module's), plus an optional plant table
+  T, optional pins tables (the tuple of
+  crackle_tpu.kernels.engine._pins_device_tables, or this module's),
+  and the piece -> slice map of split inputs, as tensors on `device`.
+  The pins come back as (pin_locs, pin_labs, single_ids, single_labs,
+  bg32, cap_n) under "pins", the map as int32 under "piece_z"."""
   dev = torch.device(device)
   out = {
     "packed": torch.from_numpy(np.ascontiguousarray(
@@ -242,7 +322,15 @@ def params_from_jax(inputs, T=None, device="cpu", pins=None):
   if pins is not None:
     out["pins"] = tuple(_i32(a, dev) for a in pins[:4]) + (
       int(pins[4]), int(pins[5]))
+  if piece_z is not None:
+    out["piece_z"] = _i32(piece_z, dev)
   return out
+
+
+def _check_window(head, z_start: int, z_end: int):
+  if not 0 <= z_start < z_end <= head.sz:
+    raise ValueError(f"window [{z_start}, {z_end}) outside [0, {head.sz}) "
+                     f"or empty")
 
 
 def _device(device) -> torch.device:
@@ -252,22 +340,84 @@ def _device(device) -> torch.device:
   return dev
 
 
+def _decode_ccl_split(binary: bytes, z_start: int, z_end: int, dev):
+  """Decode a window whose slices exceed MAX_DEVICE_CAP through
+  chain-aligned pieces (engine.py:256-274): the pieces replay on `dev`
+  as rows of their own, each slice's VCG is painted from the edge ids
+  of all its pieces, then the CCL runs on the B slices. Returns (cc,
+  N, head), or None with the reason logged."""
+  res = prepare_split_inputs(binary, z_start, z_end)
+  if res is None:
+    return _fallback("decode_window_ccl_device",
+                     "a markov stream or a single chain exceeds the piece "
+                     "limit")
+  inputs, piece_z = res
+  if not _device_cap_ok(inputs):
+    return _fallback("decode_window_ccl_device",
+                     "a piece exceeds MAX_DEVICE_CAP")
+  head = inputs["head"]
+  t = params_from_jax(inputs, device=dev, piece_z=piece_z)
+  cc, N = _dec.decode_pieces_to_ccl(
+    t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["piece_z"],
+    z_end - z_start, sx=head.sx, sy=head.sy,
+    permissible=head.crack_format == CrackFormat.PERMISSIBLE)
+  return cc, N, head
+
+
 def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int,
                              device="cuda"):
   """Decode a z window to per-slice first-visit CCL images that stay
   on `device`. Returns (cc (B, sy*sx) int32, N (B,) int32, head), or
-  None where the host rules decline the stream."""
+  None (with the reason logged) where the host rules decline the
+  stream. Slices longer than MAX_DEVICE_CAP codepoints split into
+  chain-aligned pieces."""
   dev = _device(device)
+  _check_window(_codec.header(binary), z_start, z_end)
   inputs = prepare_slice_inputs(binary, z_start, z_end)
-  if not _device_cap_ok(inputs):
-    return _fallback("decode_window_ccl_device",
-                     "stream exceeds MAX_DEVICE_CAP")
   head = inputs["head"]
+  if not _device_cap_ok(inputs):
+    return _decode_ccl_split(binary, z_start, z_end, dev)
   t = params_from_jax(inputs, device=dev)
   cc, N = _dec.decode_slices_to_ccl(
     t["packed"], t["nbytes"], t["nodes"], t["n_chains"], sx=head.sx,
     sy=head.sy, permissible=head.crack_format == CrackFormat.PERMISSIBLE)
   return cc, N, head
+
+
+def crc_gate(cc, stored, z_start: int):
+  """Raise FormatError naming the first slice whose CRC32C of cc (B,
+  sy*sx) int32, computed on cc's device, differs from its stored word
+  (stored: (B,) int64 on the same device)."""
+  got = _crc.crc32c_rows(cc)
+  bad = got != stored
+  if bool(bad.any()):
+    i = int(torch.nonzero(bad)[0, 0])
+    raise FormatError(
+      f"crackle: crack code crc mismatch on z={z_start + i} "
+      f"computed: {int(got[i])} stored: {int(stored[i])}")
+
+
+def _check_window_crcs(binary, head, cc, z_start: int):
+  """The CRC gate of a decoded window against the stream's stored
+  words, where the format version carries them."""
+  stored = _stored_crcs(head, binary, cc.device)
+  if stored is not None:
+    crc_gate(cc, stored[z_start:z_start + cc.shape[0]], z_start)
+
+
+def decode_window_ccl(binary: bytes, z_start: int, z_end: int,
+                      check_crcs: bool = True, device="cuda"):
+  """Decode a z window to per-slice first-visit CCL images
+  (engine.py:302-325). Returns (cc (B, sy*sx) int32, N (B,) int32) as
+  host numpy arrays, or None where decode_window_ccl_device declines.
+  check_crcs=True checks each slice's CRC32C on the device first."""
+  res = decode_window_ccl_device(binary, z_start, z_end, device)
+  if res is None:
+    return None
+  cc, N, head = res
+  if check_crcs:
+    _check_window_crcs(binary, head, cc, z_start)
+  return cc.cpu().numpy(), N.cpu().numpy()
 
 
 class DeviceStream:
@@ -337,10 +487,7 @@ class DeviceStream:
         win(self.n_chains), win(self.T), sx=self.head.sx,
         sy=self.head.sy, permissible=self.permissible)
     if check_crcs and self.crcs is not None:
-      bad = _crc.crc32c_rows(cc) != self.crcs[z_start:z_end]
-      if bool(bad.any()):
-        z = z_start + int(torch.nonzero(bad)[0, 0])
-        raise FormatError(f"crackle: crack code crc mismatch on z={z}")
+      crc_gate(cc, self.crcs[z_start:z_end], z_start)
     return labels, cc, N
 
 
@@ -357,8 +504,9 @@ def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
   """Parse a crackle stream and park it on `device` as a DeviceStream.
   Returns None (with a logged reason) for a label format other than
   flat or condensed pins, a slice longer than MAX_DEVICE_CAP codepoints
-  (the split decode is not ported), more than PAINT_CAP_N components in
-  a slice of a flat stream, or pins labels stored wider than 32 bits.
+  or more than PAINT_CAP_N components in a slice of a flat stream (as
+  the reference does; decode_window takes both), or pins labels stored
+  wider than 32 bits.
   Every slice size is taken otherwise: the paint goes to bands of pixels
   past one block's shared memory (replay.paint_band_px), where the
   reference's flat upload declines 1024^2 slices for a TPU VMEM
@@ -404,3 +552,153 @@ def _upload_pins_stream(head, binary: bytes, dev):
     head, t["packed"], t["nbytes"], t["nodes"], t["n_chains"], None,
     permissible=head.crack_format == CrackFormat.PERMISSIBLE,
     crcs=_stored_crcs(head, binary, dev), pins=t["pins"])
+
+
+def decode_window_device(binary: bytes, z_start: int, z_end: int,
+                         device="cuda"):
+  """Decode a z window on `device` (engine.py:421-497). Returns (labels
+  (B, sy*sx) uint32 or uint64, cc (B, sy*sx) int32, N (B,) int32, head),
+  all on the device, or None (with the reason logged) for a slice longer
+  than MAX_DEVICE_CAP codepoints, pins labels stored wider than 32 bits,
+  a label format other than flat or pins, and u64 labels with more than
+  PAINT_CAP_N components in a slice.
+
+  Pins windows take decode_slices_full_pins; flat windows the in-kernel
+  paint (decode_slices_full_plant, K = 1 or 2) up to PAINT_CAP_N
+  components a slice and the gather paint (decode_slices_full) past it."""
+  dev = _device(device)
+  head = _codec.header(binary)
+  _check_window(head, z_start, z_end)
+  permissible = head.crack_format == CrackFormat.PERMISSIBLE
+  if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
+    tables = _pins_device_tables(head, binary, z_start, z_end)
+    if tables is None:
+      return _fallback("decode_window_device",
+                       "pins tables unavailable (stored width > 4)")
+    inputs = prepare_slice_inputs(binary, z_start, z_end)
+    if not _device_cap_ok(inputs):
+      return _fallback("decode_window_device",
+                       "stream exceeds MAX_DEVICE_CAP")
+    t = params_from_jax(inputs, device=dev, pins=tables)
+    pl_, pb_, si_, sl_, bg32, cap_n = t["pins"]
+    labels, cc, N = _dec.decode_slices_full_pins(
+      t["packed"], t["nbytes"], t["nodes"], t["n_chains"], pl_, pb_, si_,
+      sl_, bg32, sx=head.sx, sy=head.sy, permissible=permissible,
+      cap_n=cap_n)
+    return labels, cc, N, head
+  if head.label_format != LabelFormat.FLAT:
+    return _fallback("decode_window_device",
+                     f"unsupported label format {head.label_format}")
+  inputs = prepare_slice_inputs(binary, z_start, z_end)
+  if not _device_cap_ok(inputs):
+    return _fallback("decode_window_device",
+                     "stream exceeds MAX_DEVICE_CAP")
+  uniq, cum, keys = _flat_label_tables(head, binary)
+  n_per_slice = cum[z_start + 1:z_end + 1] - cum[z_start:z_end]
+  max_n = int(n_per_slice.max()) if len(n_per_slice) else 1
+  cap_n = _next_pow2(max(max_n, 8))
+  if cap_n <= _ccl.PAINT_CAP_N:
+    T = plant_table(uniq, cum, keys, z_start, z_end, cap_n)
+    t = params_from_jax(inputs, T, device=dev)
+    labels, cc, N = _dec.decode_slices_full_plant(
+      t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["T"],
+      sx=head.sx, sy=head.sy, permissible=permissible)
+    return labels, cc, N, head
+  if uniq.dtype.itemsize > 4:
+    return _fallback("decode_window_device",
+                     "u64 labels without the plant kernel")
+  t = params_from_jax(inputs, device=dev)
+  labels, cc, N = _dec.decode_slices_full(
+    t["packed"], t["nbytes"], t["nodes"], t["n_chains"],
+    *_gather_tables(uniq, cum, keys, z_start, z_end, dev), sx=head.sx,
+    sy=head.sy, permissible=permissible)
+  return labels, cc, N, head
+
+
+def _gather_tables(uniq, cum, keys, z_start: int, z_end: int, dev):
+  """The gather paint's tables on `dev`: each slice's first component
+  (int64), the component -> uniq-index keys (int64) and uniq as int32
+  bits (labels of at most 32 bits)."""
+  return (torch.from_numpy(cum[z_start:z_end].astype(np.int64)).to(dev),
+          torch.from_numpy(keys.astype(np.int64)).to(dev),
+          torch.from_numpy(uniq.astype(np.uint32).view(np.int32)).to(dev))
+
+
+def _host_volume(labels, head, B: int) -> np.ndarray:
+  """(B, sy*sx) labels on a device -> the host (sx, sy, B) volume in the
+  header's memory order; a C-order volume is transposed on the device
+  before the copy (through its signed view: torch's unsigned types
+  have few kernels)."""
+  signed = {torch.uint32: torch.int32, torch.uint64: torch.int64}
+  unsigned = {torch.uint32: np.uint32, torch.uint64: np.uint64}
+  vol = labels.view(signed.get(labels.dtype, labels.dtype))
+  vol = vol.reshape(B, head.sy, head.sx).permute(2, 1, 0)
+  if not head.fortran_order:
+    vol = vol.contiguous()  # else (B, sy, sx) rows are already F order
+  vol = vol.cpu().numpy()
+  return vol.view(unsigned[labels.dtype]) if labels.dtype in unsigned \
+    else vol
+
+
+def decode_window(binary: bytes, z_start: int, z_end: int,
+                  label: Optional[int] = None, check_crcs: bool = True,
+                  device="cuda") -> Optional[np.ndarray]:
+  """Decode a z window on `device` (engine.py:664-739). Returns the host
+  numpy (sx, sy, z_end - z_start) volume in the header's memory order
+  and dtype, or with label= the boolean mask of that label, or None
+  (with the reason logged) where the stream needs the host decoder:
+  a label= query of a pins stream, pins or u64 flat windows that
+  decode_window_device declines, a markov stream that would need a
+  split, and a single chain longer than the piece limit.
+
+  Flat windows take decode_window_device; a label= query, or a window
+  it declines (slices past MAX_DEVICE_CAP, split into pieces), takes the
+  CCL images of decode_window_ccl_device and the gather paint.
+  check_crcs=True checks each slice's CRC32C on the device."""
+  dev = _device(device)
+  head = _codec.header(binary)
+  _check_window(head, z_start, z_end)
+  B = z_end - z_start
+  if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
+    if label is not None:
+      return _fallback("decode_window",
+                       "a label= query of a pins stream stays on the host")
+    res = decode_window_device(binary, z_start, z_end, dev)
+    if res is None:
+      return _fallback("decode_window", "decode_window_device declined")
+    labels, cc, _, _ = res
+    if check_crcs:
+      _check_window_crcs(binary, head, cc, z_start)
+    return _host_volume(labels, head, B).astype(head.dtype, copy=False)
+  if head.label_format != LabelFormat.FLAT:
+    return _fallback("decode_window",
+                     f"unsupported label format {head.label_format}")
+
+  uniq, cum, keys = _flat_label_tables(head, binary)
+  res = decode_window_device(binary, z_start, z_end, dev) \
+    if label is None else None
+  if res is not None:
+    labels, cc, _, _ = res
+  else:
+    if label is None and uniq.dtype.itemsize > 4:
+      return _fallback("decode_window",
+                       "u64 labels without the plant kernel: the host "
+                       "paint is faster than a device gather")
+    res = decode_window_ccl_device(binary, z_start, z_end, dev)
+    if res is None:
+      return _fallback("decode_window", "decode_window_ccl_device declined")
+    cc, _, _ = res
+    offsets, keys_t, uniq32 = _gather_tables(uniq, cum, keys, z_start,
+                                             z_end, dev)
+    if label is None:
+      labels = _dec.paint_labels_u32(cc, offsets, keys_t, uniq32)
+    else:
+      pos = int(np.searchsorted(uniq, label))
+      if pos < len(uniq) and uniq[pos] == label:
+        labels = _dec.paint_keys(cc, offsets, keys_t) == pos
+      else:
+        labels = torch.zeros_like(cc, dtype=torch.bool)
+  if check_crcs:
+    _check_window_crcs(binary, head, cc, z_start)
+  out = _host_volume(labels, head, B)
+  return out if label is not None else out.astype(head.dtype, copy=False)

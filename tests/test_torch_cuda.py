@@ -23,6 +23,7 @@ from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, random_stream, spiral_volume
 from test_torch_stats import STATS_EDGES, stats_edge_case
+from test_torch_window import checkerboard, islands, nuclei_volume
 
 pytestmark = pytest.mark.cuda
 
@@ -32,6 +33,17 @@ def dev():
   if not torch.cuda.is_available():
     pytest.skip("needs a CUDA device")
   return torch.device("cuda")
+
+
+@pytest.fixture
+def numpy_engine():
+  """The port's codec on its host engine, so that decompress stays an
+  oracle on a machine with a card (auto would send pins, markov and
+  label= windows to the card)."""
+  from crackle_tpu_torch import codec
+  codec.set_engine("numpy")
+  yield codec
+  codec.set_engine("auto")
 
 
 def _volumes():
@@ -120,12 +132,12 @@ def blocky_1024(seed=11):
 
 
 @pytest.mark.parametrize("pins", [False, True])
-def test_1024_slices_decode_on_card(dev, pins):
+def test_1024_slices_decode_on_card(dev, numpy_engine, pins):
   """A 1024^2 x 8 flat stream and its condensed-pins stream (the port's
   own compress): decode_window with the CRC gate equal to the host
   decoder; the flat one's voxel_counts and bounding_boxes equal to
   numpy's."""
-  from crackle_tpu_torch import codec
+  codec = numpy_engine
   vol = blocky_1024()
   binary = codec.compress(vol, allow_pins=pins)
   assert codec.header(binary).label_format == (2 if pins else 0)
@@ -454,3 +466,73 @@ def test_slice_stats_exact_past_2_24(dev):
   torch.cuda.synchronize()
   assert got[0, 0, :3].tolist() == [512 * 512 - 1, 66_977_791, 66_977_792]
   _equal([got], [stats.slice_stats_plain(cc, 512, 512, 8)])
+
+
+@pytest.mark.parametrize("name", ["islands", "nuclei"])
+def test_split_on_card(dev, monkeypatch, numpy_engine, name):
+  """Slices past MAX_DEVICE_CAP (1024 here) split into pieces of at most
+  SPLIT_TARGET_CPS (512 here) codepoints: decode_window_ccl_device's cc
+  and N on the card equal the CPU's, and decode_window with the CRC gate
+  equals the host decoder."""
+  monkeypatch.setattr(teng, "MAX_DEVICE_CAP", 1024)
+  monkeypatch.setattr(teng, "SPLIT_TARGET_CPS", 512)
+  vol = islands(4, 96) if name == "islands" else nuclei_volume(512, 512, 6)
+  sz = vol.shape[2]
+  binary = numpy_engine.compress(vol)
+  _, piece_z = teng.prepare_split_inputs(binary, 0, sz)
+  assert len(piece_z) > sz
+  ct.reset_launches()
+  cc, N, _ = ct.decode_window_ccl_device(binary, 0, sz, dev)
+  torch.cuda.synchronize()
+  assert ct.LAUNCHES["paint_vcg"] == 1 and ct.LAUNCHES["ccl_paint"] == 1
+  wcc, wN, _ = ct.decode_window_ccl_device(binary, 0, sz, "cpu")
+  _equal([cc, N], [wcc, wN])
+  got = ct.decode_window(binary, 0, sz, check_crcs=True, device=dev)
+  np.testing.assert_array_equal(got, numpy_engine.decompress(binary))
+  np.testing.assert_array_equal(got, vol)
+
+
+def test_gather_paint_on_card(dev, numpy_engine):
+  """7,680 components a slice, past PAINT_CAP_N: decode_window_device
+  takes the gather paint on the card, equal to the CPU's."""
+  vol = checkerboard((96, 80, 3))
+  binary = numpy_engine.compress(vol)
+  got = ct.decode_window_device(binary, 0, 3, dev)
+  assert int(got[2].min()) == 96 * 80 > ccl.PAINT_CAP_N
+  _equal(got[:3], ct.decode_window_device(binary, 0, 3, "cpu")[:3])
+  np.testing.assert_array_equal(
+    ct.decode_window(binary, 1, 3, device=dev), vol[:, :, 1:])
+
+
+@pytest.mark.parametrize("name", ["u64", "pins", "nuclei split"])
+def test_label_masks_on_card(dev, monkeypatch, numpy_engine, name):
+  """label= masks of decode_window and of codec.decompress under
+  set_engine('torch') against decompress on the host engine, for two
+  present labels and an absent one; pins queries stay on the host."""
+  codec = numpy_engine
+  if name == "nuclei split":
+    monkeypatch.setattr(teng, "MAX_DEVICE_CAP", 4096)
+    vol = nuclei_volume(256, 256, 5)
+  elif name == "pins":
+    vol = pins_volume()
+  else:
+    vol = random_volume((64, 48, 6), 9, 7, 4)
+  if name == "u64":
+    vol = np.asfortranarray(vol.astype(np.uint64) + np.uint64(1 << 40))
+  binary = codec.compress(vol, allow_pins=name == "pins")
+  assert (codec.header(binary).label_format == 2) == (name == "pins")
+  sz = vol.shape[2]
+  uniq = np.unique(vol)
+  for label in (int(uniq[1]), int(uniq[-1]), int(uniq[-1]) + 1):
+    want = codec.decompress(binary, label=label)
+    got = ct.decode_window(binary, 0, sz, label=label, device=dev)
+    if name == "pins":
+      assert got is None
+    else:
+      np.testing.assert_array_equal(got, want)
+    codec.set_engine("torch", device=dev)
+    try:
+      np.testing.assert_array_equal(codec.decompress(binary, label=label),
+                                    want)
+    finally:
+      codec.set_engine("numpy")

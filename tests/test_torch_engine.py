@@ -138,8 +138,9 @@ def test_upload_to_cuda_without_cuda_raises():
 
 def test_port_never_imports_the_reference():
   """A child process compresses with the port's codec and runs the flat,
-  pins, markov, analytics, array and compact paths on the CPU; no
-  module of JAX or of crackle_tpu may be imported."""
+  pins, markov, analytics, array, window-decode, torch-engine decompress
+  and compact paths on the CPU; no module of JAX or of crackle_tpu may
+  be imported."""
   code = (
     "import sys, numpy as np\n"
     "import crackle_tpu_torch as ct\n"
@@ -170,6 +171,11 @@ def test_port_never_imports_the_reference():
     "assert vc == {int(k): int((vol == k).sum()) for k in np.unique(vol)}\n"
     "assert ct.centroids(flat, device='cpu')\n"
     "assert ct.bounding_boxes(pins, device='cpu')\n"
+    "assert (ct.decode_window(flat, 0, 3, device='cpu') == vol).all()\n"
+    "codec.set_engine('torch', device='cpu')\n"
+    "assert (codec.decompress(pins) == blocky).all()\n"
+    "assert (codec.decompress(mkv, label=1) == (vol == 1)).all()\n"
+    "codec.set_engine('auto')\n"
     "replay.CANCEL_COMPACT = True\n"
     "lab, _, _ = ct.upload_stream(flat, 'cpu').decode_window(0, 3)\n"
     "assert (lab.numpy().reshape(3, 10, 12).transpose(2, 1, 0) == vol).all()\n"
