@@ -9,8 +9,9 @@ Phases, one line each (phases 8 to 15 several):
   3. each kernel against its plain PyTorch version, bit for bit, on
      the first 32 slices of the 512^3 bench volume, all of the 256^2 x
      128 one and of the 256^2 x 128 pins one (plus the u64 paint, a
-     tile-seam run of the replay, replay_positions with its depth
-     table in the scratch tensor, and the CCL kernels at a 64-pixel
+     tile-seam run of the replay, replay_positions and cancel_sums with
+     their depth tables in the scratch tensor, replay_positions_compact
+     in windows of 64 positions, and the CCL kernels at a 64-pixel
      tile on the 256^2 x 128 VCG and on a 512^2 snake and checkerboard,
      at both tiles); ccl_min -> roots_from_tgt -> plant against
      ccl_paint and the compact-cancel kernels' edge ids against
@@ -39,9 +40,12 @@ Phases, one line each (phases 8 to 15 several):
      busy share over three 512^3 decodes (torch.profiler);
   9. the compact-cancel path (replay.CANCEL_COMPACT): upload_stream and
      decode_window(0, 512, check_crcs=True) of the 512^3 volume against
-     the oracle, its launch counts, steady times beside the default
-     path's, and its stage times against replay_positions', with their
-     shares of the bound at B = 512;
+     the oracle, with no call of torch.sort or replay.sorted_keys, its
+     launch counts, steady times beside the default path's, and its
+     stage times against replay_positions', with their shares of the
+     bound at B = 512 and at B = 32; how cancel_sums' record stores
+     coalesce, and its time at 16 warps a slice and
+     replay_positions_compact's at other windows;
  10. the pins path: the 512^3 pins stream and the 256^2 x 128 pins
      volume uploaded and decoded (whole and a window) against the
      oracle, its launch counts, steady times and stage times, and
@@ -520,13 +524,12 @@ def compare_kernels(binary, z1, dev, tag, errs):
   idsp = replay.replay_positions_plain(evp, cp, drp, t["nodes"], sx, sy)
   errs["replay_positions"] = max(errs["replay_positions"], require_equal(
     f"{tag} edge ids", ids, idsp))
-  skp = replay.sorted_keys(evp, cp)
 
-  dense = replay.cancel_sums(skp)
-  densep = replay.cancel_sums_plain(skp)
+  dense = replay.cancel_sums(evp, cp, drp)
+  densep = replay.cancel_sums_plain(evp, cp, drp)
   errs["cancel_sums"] = max(errs["cancel_sums"], require_equal(
     f"{tag} dense close records", dense, densep))
-  ccap = replay.close_cap(skp.shape[1], t["nodes"].shape[1])
+  ccap = replay.close_cap(evp.shape[1], t["nodes"].shape[1])
   tables = replay.compact_closes(densep, ccap)
   tablesp = replay.compact_closes_plain(densep, ccap)
   errs["compact_closes"] = max(errs["compact_closes"], require_equal(
@@ -580,7 +583,7 @@ def compare_kernels(binary, z1, dev, tag, errs):
   errs["slice_stats"] = max(errs["slice_stats"], require_equal(
     f"{tag} slice_stats", stats.slice_stats(ccp, sx, sy, cap_s),
     stats.slice_stats_plain(ccp, sx, sy, cap_s)))
-  return (t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
+  return (t, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
           tablesp, evp, drp)
 
 
@@ -637,8 +640,8 @@ OPS_PER_S = 67e12
 # kernel, a floor counted from its source
 OPS_PER = {"replay_keys": 40, "replay_positions": 30, "paint_vcg": 15,
            "ccl_paint": 20, "ccl_min": 20, "plant": 30, "slice_stats": 10,
-           "cancel_sums": 30, "compact_closes": 3,
-           "replay_positions_compact": 25}
+           "cancel_sums": 50, "compact_closes": 3,
+           "replay_positions_compact": 40}
 
 
 def nbytes_of(*ts):
@@ -660,13 +663,13 @@ def slice_stats_io(cc, cap_n):
   return nbytes_of(cc) + cc.shape[0] * cap_n * 8 * 8, cc.numel()
 
 
-def kernel_io(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
-              tablesp, evp, drp):
+def kernel_io(t, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp,
+              evp, drp):
   """name -> (bytes, elements) of each kernel on these inputs: each
   input read once and each output written once; where the work depends
   on the data (the close records a compaction moves), only what these
   inputs need is counted."""
-  B, CAP = skp.shape
+  B, CAP = evp.shape
   npx = vp.numel()
   K = t["T"].shape[1]
   kept = int((tablesp[0] < CAP).sum())
@@ -680,7 +683,7 @@ def kernel_io(t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep,
     "ccl_min": (nbytes_of(vp) + 2 * npx * 4, npx),
     "plant": (nbytes_of(Lp, roots, t["T"]) + npx * 4 * (1 + K), npx),
     "slice_stats": slice_stats_io(ccp, cap_s),
-    "cancel_sums": (nbytes_of(skp, densep), B * CAP),
+    "cancel_sums": (nbytes_of(evp, cp, drp, densep), B * CAP),
     "compact_closes": compact_closes_io(densep, tablesp),
     "replay_positions_compact": (nbytes_of(cp, t["nodes"], tablesp[0], idsp)
                                  + kept * 8, B * CAP),
@@ -710,7 +713,6 @@ def full_io(s):
   and outputs made once by the kernels, and only their sizes kept."""
   h = s.head
   ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  skeys = replay.sorted_keys(ev, cls)
   ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
   vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
   cc, N, _ = ccl.ccl_paint(vcg, s.T)
@@ -718,18 +720,19 @@ def full_io(s):
   cap2 = ccl._pow2_cap(int(N.max()))
   roots, _ = ccl.roots_from_tgt(tgt, cap2)
   del tgt
-  dense = replay.cancel_sums(skeys)
+  dense = replay.cancel_sums(ev, cls, dr)
   tables = replay.compact_closes(dense, replay.close_cap(
-    skeys.shape[1], s.nodes.shape[1]))
+    ev.shape[1], s.nodes.shape[1]))
   t = {"packed": s.packed, "nbytes": s.nbytes, "n_chains": s.n_chains,
        "nodes": s.nodes, "T": s.T}
-  return kernel_io(t, skeys, cls, ids, vcg, L, roots, cc, cap2, dense,
-                   tables, ev, dr)
+  return kernel_io(t, cls, ids, vcg, L, roots, cc, cap2, dense, tables, ev,
+                   dr)
 
 
 class SortCount:
   """Counts the calls of torch.sort and of replay.sorted_keys (the
-  compact path's rebuilt keys) while it is entered."""
+  reference's keys, which only cancel_sums' plain version sorts) while
+  it is entered."""
 
   def __enter__(self):
     self.n = {"torch.sort": 0, "sorted_keys": 0}
@@ -815,34 +818,40 @@ def run(dev, card, kind, oracles, paths, t_or):
   compare_kernels(bpins, 128, dev, "pins 256^2x128", errs)
   # tile seams: the kernels with a 64-codepoint tile against the plain
   # versions at the default tile, on the 256^2 volume
-  _, _, _, _, want, sx, sy, perm, *_ = compare_kernels(
+  _, _, _, want, sx, sy, perm, *_ = compare_kernels(
     b256, 128, dev, "256^2x128", errs)
   t = eng.params_from_jax(eng.prepare_slice_inputs(b256, 0, 128), None,
                           dev)
-  replay.TILE = 64
+  # and the compact replay in windows of 64 positions
+  replay.TILE, window, replay.COMPACT_WINDOW = 64, replay.COMPACT_WINDOW, 64
   try:
     ev, c, dr = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-    sk = replay.sorted_keys(ev, c)
     ids = replay.replay_positions(ev, c, dr, t["nodes"], sx, sy)
+    dense = replay.cancel_sums(ev, c, dr)
     idc = replay.replay_positions_compact(c, replay.compact_closes(
-      replay.cancel_sums(sk), replay.close_cap(sk.shape[1],
-                                               t["nodes"].shape[1])),
+      dense, replay.close_cap(ev.shape[1], t["nodes"].shape[1])),
       t["nodes"], sx, sy)
   finally:
-    replay.TILE = 1024
+    replay.TILE, replay.COMPACT_WINDOW = 1024, window
   require_equal("tile-64 vcg", replay.paint_vcg(ids, sx, sy, perm), want)
-  require_equal("tile-64 compact edge ids", idc, ids)
-  # the depth table in the scratch tensor for each slice whose depth
+  errs["replay_positions_compact"] = max(
+    errs["replay_positions_compact"],
+    require_equal("64-position-window compact edge ids", idc, ids))
+  # the depth tables in the scratch tensor for each slice whose depth
   # range passes a 1-entry shared table
   table, replay.DEPTH_TABLE = replay.DEPTH_TABLE, 1
   try:
     if int((dr[:, 1] - dr[:, 0]).max()) < 1:
       raise AssertionError("no slice's depth range passes 1 entry")
     ids4 = replay.replay_positions(ev, c, dr, t["nodes"], sx, sy)
+    dense4 = replay.cancel_sums(ev, c, dr)
   finally:
     replay.DEPTH_TABLE = table
   errs["replay_positions"] = max(errs["replay_positions"], require_equal(
     "scratch-table edge ids", ids4, ids))
+  errs["cancel_sums"] = max(errs["cancel_sums"], require_equal(
+    "scratch-table dense close records", dense4, dense), require_equal(
+    "dense close records", dense, replay.cancel_sums_plain(ev, c, dr)))
   # CCL tile seams: a 64-pixel tile on the 256^2 VCG; a snake through
   # every tile (N = 1) and a checkerboard, whose VCG links nothing
   # (N = n), at 512^2
@@ -857,6 +866,8 @@ def run(dev, card, kind, oracles, paths, t_or):
   say(3, f"kernels bit-equal to their plain versions on 512^3[:32], "
          f"256^2x128, u64[:32], pins 256^2x128, the replay at tile 64 and "
          f"with its depth table in the scratch tensor, "
+         f"cancel_sums with its depth tables in the scratch tensor, "
+         f"replay_positions_compact in windows of 64 positions, "
          f"the CCL at 64-pixel tiles and on a 512^2 snake and "
          f"checkerboard, "
          f"ccl_min -> roots_from_tgt -> plant equal to ccl_paint and "
@@ -873,7 +884,7 @@ def run(dev, card, kind, oracles, paths, t_or):
 
   # kernel, plain and library-call times at the 512^3 slice shapes
   # (first 32 slices), and each kernel's bound on the same inputs
-  (t, skp, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
+  (t, cp, idsp, vp, sx, sy, perm, Lp, roots, ccp, cap_s, densep,
    tablesp, evp, drp) = sub
   Tt = t["T"]
   ccap = tablesp.shape[2]
@@ -893,8 +904,8 @@ def run(dev, card, kind, oracles, paths, t_or):
               lambda: ccl.plant_plain(Lp, roots, Tt)),
     "slice_stats": (lambda: stats.slice_stats(ccp, sx, sy, cap_s),
                     lambda: stats.slice_stats_plain(ccp, sx, sy, cap_s)),
-    "cancel_sums": (lambda: replay.cancel_sums(skp),
-                    lambda: replay.cancel_sums_plain(skp)),
+    "cancel_sums": (lambda: replay.cancel_sums(evp, cp, drp),
+                    lambda: replay.cancel_sums_plain(evp, cp, drp)),
     "compact_closes": (lambda: replay.compact_closes(densep, ccap),
                        lambda: replay.compact_closes_plain(densep, ccap)),
     "replay_positions_compact": (lambda: replay.replay_positions_compact(
@@ -924,9 +935,9 @@ def run(dev, card, kind, oracles, paths, t_or):
   eager["scatter_"] = cuda_ms(lambda: empty.scatter_(2, tgt, densep[1:]),
                               10)
   bounds = {name: bound(name, *io) for name, io in kernel_io(
-    t, skp, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp, evp,
+    t, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp, evp,
     drp).items()}
-  del sub, args, t, skp, cp, idsp, vp, Lp, roots, ccp, densep, tablesp
+  del sub, args, t, cp, idsp, vp, Lp, roots, ccp, densep, tablesp
   del evp, drp
   del dest, tgt, empty
 
@@ -1054,10 +1065,8 @@ def run(dev, card, kind, oracles, paths, t_or):
     say(9, f"compact-cancel path: upload_stream + first decode_window(0, "
            f"512, check_crcs=True) {t_dec * 1e3:.3f} ms, labels bit-equal "
            f"to the host decoder")
-    say(9, f"compact-path launches {launches['compact']}; calls "
-           f"{sorts.n}")
-    if not sorts.n["sorted_keys"]:
-      raise AssertionError("the compact path did not rebuild the keys")
+    say(9, f"compact-path launches {launches['compact']}")
+    say(9, sorts.require_none("compact"))
     check_path("compact", launches["compact"])
     if launches["compact"]["replay_positions"]:
       raise AssertionError("the compact path launched replay_positions")
@@ -1066,17 +1075,24 @@ def run(dev, card, kind, oracles, paths, t_or):
     replay.CANCEL_COMPACT = False
   steady(9, "default 512^3 (after the compact path)", stream)
   ctimes = compact_stage_times(stream)
+  path_ms = sum(ctimes[k] for k in PATHS["compact"] if k in ctimes)
   say(9, "512^3 compact stage ms at B=512 (CUDA events): " + ", ".join(
-    f"{k} {v:.3f}" for k, v in ctimes.items())
-      + f"; sorted_keys + cancel_sums + compact_closes + "
-        f"replay_positions_compact "
-        f"{sum(v for k, v in ctimes.items() if k != 'replay_positions'):.3f}"
-        f" against replay_positions {ctimes['replay_positions']:.3f}")
+    f"{k} {v:.4f}" for k, v in ctimes.items())
+      + f"; cancel_sums + compact_closes + replay_positions_compact "
+        f"{path_ms:.4f} against replay_positions "
+        f"{ctimes['replay_positions']:.4f}")
   for name in ("cancel_sums", "compact_closes", "replay_positions_compact"):
     full[name] = (512, ctimes[name], bound(name, *io512[name])[2])
     say(9, "512^3 stage " + share_line(name, ctimes[name], io512[name], 512)
            + (" (200 launches in one CUDA graph)"
               if name == "compact_closes" else ""))
+  for name in ("cancel_sums", "replay_positions_compact"):
+    km, bms = times[name][0], bounds[name][2]
+    say(9, f"{name}: B=32 {km:.4f} ms against its bound "
+           f"{bms * 1e3:.2f} us ({100 * bms / km:.1f}%); B=512 "
+           f"{full[name][1]:.4f} ms against {full[name][2] * 1e3:.2f} us "
+           f"({100 * full[name][2] / full[name][1]:.1f}%)")
+  say(9, compact_design_line(stream))
   del cs
   del small
 
@@ -1633,16 +1649,14 @@ def ccl_pass_times(s, tile):
 
 def compact_stage_times(s):
   """Device ms of the compact-cancel stages of one full-volume decode,
-  and of replay_positions, which they replace, on the same events, and
-  of the sort of the keys that the compact path adds (sorted_keys)."""
+  and of replay_positions, which they replace, on the same events."""
   h = s.head
   ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
-  skeys = replay.sorted_keys(ev, cls)
-  dense = replay.cancel_sums(skeys)
-  ccap = replay.close_cap(skeys.shape[1], s.nodes.shape[1])
+  dense = replay.cancel_sums(ev, cls, dr)
+  ccap = replay.close_cap(ev.shape[1], s.nodes.shape[1])
   tables = replay.compact_closes(dense, ccap)
   return {
-    "cancel_sums": cuda_ms(lambda: replay.cancel_sums(skeys), 3),
+    "cancel_sums": cuda_ms(lambda: replay.cancel_sums(ev, cls, dr), 3),
     "compact_closes": graph_ms(lambda: replay.compact_closes(dense, ccap),
                                200),
     "replay_positions_compact": cuda_ms(
@@ -1650,8 +1664,55 @@ def compact_stage_times(s):
                                               h.sy), 3),
     "replay_positions": cuda_ms(lambda: replay.replay_positions(
       ev, cls, dr, s.nodes, h.sx, h.sy), 3),
-    "sorted_keys": cuda_ms(lambda: replay.sorted_keys(ev, cls), 3),
   }
+
+
+def compact_design_line(s):
+  """What the two compact kernels' designs trade, on the full volume:
+  how cancel_sums' record stores coalesce (the 32-byte sectors that each
+  warp step's active lanes store to in the pos plane, against one
+  sector for every 8 records; the other planes take only the closes),
+  cancel_sums at 16 warps a slice (2 blocks an SM) beside the default 32
+  (1 block), and replay_positions_compact at other windows."""
+  h = s.head
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  dense = replay.cancel_sums(ev, cls, dr)
+  B, CAP = ev.shape
+  n = (ev & 1).sum(1, keepdim=True)
+  slot = torch.arange(CAP, device=ev.device).expand(B, CAP)
+  at = torch.where(slot < n, dense[1].to(torch.int64), CAP)
+  slot_of = torch.full((B, CAP + 1), -1, dtype=torch.int64, device=ev.device)
+  slot_of.scatter_(1, at, slot)
+  sec = torch.sort(slot_of[:, :CAP].reshape(B, CAP // 32, 32) // 8,
+                   -1).values  # -1 where inactive
+  sectors = int(((sec[..., 1:] != sec[..., :-1]) & (sec[..., 1:] >= 0)).sum()
+                + (sec[..., 0] >= 0).sum())
+  records = int(n.sum())
+  closes = int((dense[0] >= 0).sum())
+  ccap = replay.close_cap(CAP, s.nodes.shape[1])
+  tables = replay.compact_closes(dense, ccap)
+  warps, replay.POS_WARPS = replay.POS_WARPS, 16
+  try:
+    ms16 = cuda_ms(lambda: replay.cancel_sums(ev, cls, dr), 3)
+  finally:
+    replay.POS_WARPS = warps
+  win = {}
+  default = replay.COMPACT_WINDOW
+  for w in (2048, 4096, 8192):
+    replay.COMPACT_WINDOW = w
+    try:
+      win[w] = cuda_ms(lambda: replay.replay_positions_compact(
+        cls, tables, s.nodes, h.sx, h.sy), 3)
+    finally:
+      replay.COMPACT_WINDOW = default
+  return (f"cancel_sums record stores at B={B}: {sectors} sectors of 32 "
+          f"bytes a plane for {records} records ({closes} closes), "
+          f"{8 * sectors / records:.3f} times one sector for every 8; "
+          f"cancel_sums with 16 warps a "
+          f"slice {ms16:.4f} ms; replay_positions_compact ms by window "
+          f"(CUDA events, mean of 3): " + ", ".join(
+            f"{w} {ms:.4f}" + (" (default)" if w == default else "")
+            for w, ms in win.items()))
 
 
 def pins_stage_times(s):

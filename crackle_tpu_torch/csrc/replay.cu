@@ -240,65 +240,9 @@ replay_keys_kernel(const uint8_t* __restrict__ packed,
 // and V sums of the moves since that depth's last close: a close's
 // cancel is its depth's pending sum, which then resets to 0. Each
 // close's cancel is known when the walk reaches it, so the same walk
-// runs the 64-bit position scan (replay_forward's arithmetic) and writes
-// the edge ids: no sort, no cancel buffer in device memory, no atomics
-// on it.
-//
-// A table entry is an int2 {2 * h + closed, v} indexed by depth -
-// drange.lo: the pending sums, and whether the walk flushed that depth.
-
-// One warp step of the walk over 32 positions, one a lane, in order:
-// __match_any_sync groups the lanes by depth; a close takes the moves of
-// its group since the group's previous close (popcounts of four move
-// ballots over a lane mask), plus the table's pending sums if it is the
-// group's first close; the group's last close (or its last lane, with no
-// close) writes the table once. Returns this lane's cancel (H, V), 0
-// off closes.
-__device__ __forceinline__ int2 walk_step(int e, int c, int2* tab, int dlo,
-                                          int R, int lane) {
-  const unsigned lt = (1u << lane) - 1;
-  const int cps = c & 3;
-  const int k = (e >> 2) - dlo;
-  const bool act = (e & 1) && k >= 0 && k < R;
-  const bool close = act && ((e >> 1) & 1);
-  const bool move = act && !close;
-  const unsigned g = __match_any_sync(FULL_MASK, act ? k : -1);
-  const unsigned closes = __ballot_sync(FULL_MASK, close);
-  const unsigned mL = __ballot_sync(FULL_MASK, move && cps == 3);
-  const unsigned mR = __ballot_sync(FULL_MASK, move && cps == 1);
-  const unsigned mU = __ballot_sync(FULL_MASK, move && cps == 0);
-  const unsigned mD = __ballot_sync(FULL_MASK, move && cps == 2);
-  auto sum_h = [&](unsigned m) { return __popc(mL & m) - __popc(mR & m); };
-  auto sum_v = [&](unsigned m) { return __popc(mU & m) - __popc(mD & m); };
-  int2 cancel = make_int2(0, 0);
-  if (close) {
-    const unsigned prior = closes & g & lt;
-    // the group's lanes below this one, after its previous close if any
-    const unsigned m = prior ? g & lt & ~((2u << (31 - __clz(prior))) - 1)
-                             : g & lt;
-    cancel = make_int2(sum_h(m), sum_v(m));
-    if (!prior) {
-      const int2 p = tab[k];
-      cancel.x += p.x >> 1;
-      cancel.y += p.y;
-    }
-  }
-  __syncwarp();
-  if (act) {
-    const unsigned gc = closes & g;
-    if (lane == 31 - __clz(gc ? gc : g)) {
-      if (gc) {  // the moves after the group's last close
-        const unsigned m = g & ~((2u << lane) - 1);
-        tab[k] = make_int2(2 * sum_h(m) + 1, sum_v(m));
-      } else {
-        const int2 p = tab[k];
-        tab[k] = make_int2(p.x + 2 * sum_h(g), p.y + sum_v(g));
-      }
-    }
-  }
-  __syncwarp();
-  return cancel;
-}
+// runs the 64-bit position scan and writes the edge ids: no sort, no
+// cancel buffer in device memory, no atomics on it. The walk's step and
+// its tables are in replay.cuh.
 
 // The walk over positions [s0, s1) of a slice by one warp, from the
 // pending sums in `tab` and the position `pcarry` before s0: the
@@ -319,7 +263,7 @@ __device__ __forceinline__ void walk_ids(
       e_nx = e_row[i + 32];
       c_nx = c_row[i + 32];
     }
-    const int2 cn = walk_step(e, c, tab, dlo, R, lane);
+    const int2 cn = walk_step(e, c, tab, dlo, R, lane).cancel;
     const int cps = c & 3;
     const int mv = (c >> 2) & 1;
     const int delta = mv ? move_delta(cps, sxe) : 0;
@@ -404,7 +348,7 @@ replay_positions_kernel(const int* __restrict__ ev, const int* __restrict__ cls,
     const int i = t0 + lane;
     const int e = i < s1 ? e_row[i] : 0;
     const int c = i < s1 ? c_row[i] : 0;
-    const int2 cn = walk_step(e, c, tab, dlo, R, lane);
+    const int2 cn = walk_step(e, c, tab, dlo, R, lane).cancel;
     const int delta = (c >> 2) & 1 ? move_delta(c & 3, sxe) : 0;
     local += delta + cn.x + (long long)sxe * cn.y;
   }

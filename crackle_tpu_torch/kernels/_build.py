@@ -60,12 +60,13 @@ _SIGNATURES = {
   "plant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
   # cc, out, B, sx, sy, cap_n, band_rows, stream
   "slice_stats_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
-  # skeys, dense, B, CAP, tile, stream
-  "cancel_sums_launch": [_P, _P, _I, _I, _I, _P],
+  # ev, cls, drange, scratch, dense, B, CAP, budget, stride, warps,
+  # stream
+  "cancel_sums_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
   # dense, tables, scratch, B, CAP, CCAP, stream
   "compact_closes_launch": [_P, _P, _P, _I, _I, _I, _P],
-  # cls, tables, nodes, cancel, ids, B, CAP, CCAP, CAP_CH, sx, sy, tile,
-  # stream
+  # cls, tables, nodes, state, ids, B, CAP, CCAP, CAP_CH, sx, sy,
+  # window, stream
   "replay_positions_compact_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _P],
 }

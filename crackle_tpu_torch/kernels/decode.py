@@ -21,14 +21,12 @@ from . import replay as _replay
 def _edge_ids(packed, nbytes, nodes, n_chains, sx: int, sy: int):
   """Edge ids (B, CAP) int32 through replay_keys and replay_positions,
   or with replay.CANCEL_COMPACT through the compact-cancel kernels in
-  place of replay_positions (the same edge ids), which read the events
-  as the reference's sorted keys."""
+  place of replay_positions (the same edge ids). Neither path sorts."""
   ev, cls, drange = _replay.replay_keys(packed, nbytes, n_chains)
   if _replay.CANCEL_COMPACT:
-    skeys = _replay.sorted_keys(ev, cls)
-    dense = _replay.cancel_sums(skeys)
+    dense = _replay.cancel_sums(ev, cls, drange)
     tables = _replay.compact_closes(
-      dense, _replay.close_cap(skeys.shape[1], nodes.shape[1]))
+      dense, _replay.close_cap(ev.shape[1], nodes.shape[1]))
     return _replay.replay_positions_compact(cls, tables, nodes, sx, sy)
   return _replay.replay_positions(ev, cls, drange, nodes, sx, sy)
 

@@ -17,10 +17,13 @@ a table (replay_positions), so no sort runs on the default path.
 
 With CANCEL_COMPACT, three kernels of csrc/compact.cu take the place of
 replay_positions, giving the same edge ids element by element (the
-reference's compact-cancel path, replay_big.py:878-980); they read the
-sorted keys, which sorted_keys rebuilds from the event words:
+reference's compact-cancel path, replay_big.py:878-980). cancel_sums
+writes the close records in the order of the reference's sorted
+(depth, position) keys without sorting: the forward walk counts each
+depth's events and closes beside its pending sums. Only its plain
+version sorts (sorted_keys).
 
-  cancel_sums               sorted keys -> dense close records
+  cancel_sums               events + cls -> dense close records
   compact_closes            dense records -> compact close tables
   replay_positions_compact  cls + tables -> masked edge ids
 
@@ -38,19 +41,24 @@ from . import _build
 
 # a power of two in [32, 1024]: the plain versions' tile (codepoints);
 # replay_keys' block size (each thread takes 32 codepoints, so a block
-# step covers 32 * TILE); the compact kernels' block size
+# step covers 32 * TILE)
 TILE = 1024
 
-# entries (two int32 each) of the per-depth pending table that each
-# warp of replay_positions keeps in shared memory; a slice whose depth
-# range is wider is walked by one warp with the table in a scratch
-# tensor in device memory. The bench volumes' slices span at most 131
+# entries of the per-depth table that each warp of replay_positions (two
+# int32 an entry) and cancel_sums (four) keeps in shared memory; a slice
+# whose depth range is wider is walked by one warp with the table in a
+# scratch tensor in device memory. The bench volumes' slices span at most 131
 # (512^3) and 328 (u64 256^2) depths. Tests shrink it to run that branch.
 DEPTH_TABLE = 384
 
 # the most warps (segments walked in parallel) a slice takes in
-# replay_positions; a segment holds at least 32 positions
+# replay_positions and cancel_sums; a segment holds at least 32 positions
 POS_WARPS = 32
+
+# a power of two in [32, 8192]: the positions of a slice that a block
+# of replay_positions_compact takes, their cancels in shared memory (8
+# bytes a position). Tests shrink it to cross window seams.
+COMPACT_WINDOW = 8192
 
 INF = torch.iinfo(torch.int64).max
 
@@ -297,8 +305,8 @@ def _close_cancels(ev, cls, drange):
 def sorted_keys(ev, cls):
   """The reference's sort keys rebuilt from the event words, sorted per
   slice: (depth * CAP + pos) << 3 | close << 2 | cps, INT64_MAX where
-  inactive (decode.py:154-168). Only the compact-cancel path reads
-  them."""
+  inactive (decode.py:154-168). Only cancel_sums_plain and the tests
+  read them; no kernel path sorts."""
   CAP = ev.shape[1]
   act, close, _, depth, _, _ = _unpack_events(ev, cls)
   pos = torch.arange(CAP, device=ev.device)[None, :]
@@ -409,10 +417,13 @@ def close_cap(CAP: int, CAP_CH: int) -> int:
   return 128 * (-(-rows // 4) * 4)
 
 
-def cancel_sums_plain(skeys):
-  """Plain version of the cancel_sums kernel. Returns (4, B, CAP) int32:
-  dest (close rank, -1 elsewhere), pos (key bits & (CAP - 1)), sumH and
-  sumV (the close's run sums, 0 elsewhere), per sorted slot."""
+def cancel_sums_plain(ev, cls, drange):
+  """Plain version of the cancel_sums kernel, on the reference's sorted
+  keys (sorted_keys; drange is the kernel's and unused here). Returns
+  (4, B, CAP) int32: dest (close rank, -1 elsewhere), pos (key bits &
+  (CAP - 1): the event's position, CAP - 1 past the active events), sumH
+  and sumV (the close's run sums, 0 elsewhere), per sorted slot."""
+  skeys = sorted_keys(ev, cls)
   B, CAP = skeys.shape
   dev = skeys.device
   T = _tile(CAP)
@@ -462,21 +473,35 @@ def cancel_sums_plain(skeys):
   return out
 
 
-def cancel_sums(skeys):
-  """Kernel h: sorted keys (B, CAP) int64 -> dense close records (4, B,
-  CAP) int32 (dest, pos, sumH, sumV; see cancel_sums_plain)."""
-  _check("cancel_sums", skeys, torch.int64, 2)
-  B, CAP = skeys.shape
+def cancel_sums(ev, cls, drange):
+  """Kernel h: event words (B, CAP) int32, cls (B, CAP) int32, depth
+  ranges (B, 2) int32 (from replay_keys) -> dense close records (4, B,
+  CAP) int32 in the order of the sorted keys (dest, pos, sumH, sumV; see
+  cancel_sums_plain), without a sort."""
+  _check("cancel_sums", ev, torch.int32, 2)
+  _check("cancel_sums", cls, torch.int32, 2)
+  _check("cancel_sums", drange, torch.int32, 2)
+  B, CAP = ev.shape
+  if cls.shape != ev.shape or drange.shape != (B, 2):
+    raise ValueError("cancel_sums: shapes differ")
   if CAP & (CAP - 1):
     raise ValueError(f"cancel_sums: CAP {CAP} is not a power of two")
-  if skeys.device.type != "cuda":
-    return cancel_sums_plain(skeys)
-  dense = torch.empty((4, B, CAP), dtype=torch.int32, device=skeys.device)
+  if not _same_device("cancel_sums", ev, cls, drange):
+    return cancel_sums_plain(ev, cls, drange)
+  if DEPTH_TABLE < 1:
+    raise ValueError(f"DEPTH_TABLE must be at least 1: {DEPTH_TABLE}")
+  dense = torch.empty((4, B, CAP), dtype=torch.int32, device=ev.device)
   if B:
+    # touched only by slices whose depth range passes DEPTH_TABLE
+    stride = depth_table_stride(CAP)
+    scratch = torch.empty((B, stride, 4), dtype=torch.int32,
+                          device=ev.device)
     lib = _build.library()
     err = lib.cancel_sums_launch(
-      skeys.data_ptr(), dense.data_ptr(), B, CAP, _tile(CAP),
-      torch.cuda.current_stream(skeys.device).cuda_stream)
+      ev.data_ptr(), cls.data_ptr(), drange.data_ptr(), scratch.data_ptr(),
+      dense.data_ptr(), B, CAP, DEPTH_TABLE, stride,
+      min(POS_WARPS, max(1, CAP // 32)),
+      torch.cuda.current_stream(ev.device).cuda_stream)
     _build.check("cancel_sums", err)
     _build.LAUNCHES["cancel_sums"] += 1
   return dense
@@ -540,7 +565,8 @@ def replay_positions_compact_plain(cls, tables, nodes, sx: int, sy: int):
 def replay_positions_compact(cls, tables, nodes, sx: int, sy: int):
   """Kernel j: cls (B, CAP) int32, compact tables (3, B, CCAP) int32,
   chain start nodes (B, CAP_CH) int32 -> edge ids (B, CAP) int32, equal
-  to replay_positions' on the same stream."""
+  to replay_positions' on the same stream. The kernel takes windows of
+  COMPACT_WINDOW positions, one block each."""
   _check("replay_positions_compact", cls, torch.int32, 2)
   _check("replay_positions_compact", tables, torch.int32, 3)
   _check("replay_positions_compact", nodes, torch.int32, 2)
@@ -555,14 +581,30 @@ def replay_positions_compact(cls, tables, nodes, sx: int, sy: int):
       "replay_positions_compact: slice too large for int32 ids")
   if not _same_device("replay_positions_compact", cls, tables, nodes):
     return replay_positions_compact_plain(cls, tables, nodes, sx, sy)
+  W = COMPACT_WINDOW
+  if W < 32 or W > 8192 or W & (W - 1):
+    raise ValueError(
+      f"COMPACT_WINDOW must be a power of two in [32, 8192]: {W}")
+  if CAP < 16:  # a thread of the kernel takes 16 positions
+    raise ValueError(f"replay_positions_compact: CAP {CAP} below 16")
+  W = min(W, CAP)
   ids = torch.empty((B, CAP), dtype=torch.int32, device=cls.device)
   if B:
-    cancel = torch.empty((B, 2 * CAP), dtype=torch.int32, device=cls.device)
+    if tables.shape[2] % 4 or tables.data_ptr() % 16:
+      # the kernel reads the table rows in 16-byte loads
+      CCAP = -(-tables.shape[2] // 4) * 4
+      padded = torch.full((3, B, CCAP), CAP, dtype=torch.int32,
+                          device=cls.device)
+      padded[:, :, :tables.shape[2]] = tables
+      tables = padded
+    # a ticket counter, then one look-back word a window of each slice
+    state = torch.zeros(1 + B * (CAP // W), dtype=torch.int64,
+                        device=cls.device)
     lib = _build.library()
     err = lib.replay_positions_compact_launch(
       cls.data_ptr(), tables.data_ptr(), nodes.data_ptr(),
-      cancel.data_ptr(), ids.data_ptr(), B, CAP, tables.shape[2],
-      nodes.shape[1], sx, sy, _tile(CAP),
+      state.data_ptr(), ids.data_ptr(), B, CAP, tables.shape[2],
+      nodes.shape[1], sx, sy, W,
       torch.cuda.current_stream(cls.device).cuda_stream)
     _build.check("replay_positions_compact", err)
     _build.LAUNCHES["replay_positions_compact"] += 1

@@ -17,7 +17,7 @@ from crackle_tpu_torch.kernels import engine as teng
 from crackle_tpu_torch.kernels import replay
 
 from test_jax_decode import random_volume
-from test_torch_replay import islands_volume, spiral_volume
+from test_torch_replay import islands_volume, random_stream, spiral_volume
 
 # the volumes of test_jax_decode.test_replay_big_compact_cancel_path,
 # and one with more than 32 chains per slice
@@ -46,9 +46,7 @@ def _padded_inputs(binary, head):
 
 def _port_stages(inputs):
   t = teng.params_from_jax(inputs, device="cpu")
-  ev, cls, drange = replay.replay_keys(t["packed"], t["nbytes"],
-                                       t["n_chains"])
-  return t, replay.sorted_keys(ev, cls), cls, drange
+  return (t,) + replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
 
 
 @pytest.fixture
@@ -78,8 +76,8 @@ def _hold_to_reference(inputs, sx, sy, permissible):
     sx, sy, permissible, stash=stash)
   want = [np.asarray(a).reshape(B, CAP) for a in stash["dense_close"]]
 
-  t, skeys, _, _ = _port_stages(inputs)
-  dense = replay.cancel_sums_plain(skeys).numpy()
+  _, ev, cls, drange = _port_stages(inputs)
+  dense = replay.cancel_sums_plain(ev, cls, drange).numpy()
   closes = want[0] >= 0
   np.testing.assert_array_equal(dense[0] >= 0, closes)
   for got, ref in zip(dense, want):  # dest, pos, sumH, sumV
@@ -143,19 +141,19 @@ def test_compact_ids_equal_replay_positions(monkeypatch, name, tile):
   inputs = teng.prepare_slice_inputs(binary, 0, head.sz)
   if name == "islands":
     assert inputs["nodes"].shape[1] > 32
-  t, skeys, cls, drange = _port_stages(inputs)
-  ev, _, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  t, ev, cls, drange = _port_stages(inputs)
   want = replay.replay_positions_plain(ev, cls, drange, t["nodes"],
                                        head.sx, head.sy)
-  dense = replay.cancel_sums_plain(skeys)
+  dense = replay.cancel_sums_plain(ev, cls, drange)
   tables = replay.compact_closes_plain(
-    dense, replay.close_cap(skeys.shape[1], t["nodes"].shape[1]))
+    dense, replay.close_cap(ev.shape[1], t["nodes"].shape[1]))
   got = replay.replay_positions_compact_plain(cls, tables, t["nodes"],
                                               head.sx, head.sy)
   assert torch.equal(got, want)
   # the wrappers take the plain versions for CPU tensors
   assert torch.equal(replay.replay_positions_compact(
-    cls, replay.compact_closes(replay.cancel_sums(skeys), tables.shape[2]),
+    cls, replay.compact_closes(replay.cancel_sums(ev, cls, drange),
+                               tables.shape[2]),
     t["nodes"], head.sx, head.sy), want)
 
 
@@ -183,8 +181,9 @@ def many_closes_inputs():
 
 def test_compaction_drops_ranks_past_the_table():
   t = teng.params_from_jax(many_closes_inputs(), device="cpu")
-  ev, cls, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  dense = replay.cancel_sums(replay.sorted_keys(ev, cls))
+  ev, cls, drange = replay.replay_keys(t["packed"], t["nbytes"],
+                                       t["n_chains"])
+  dense = replay.cancel_sums(ev, cls, drange)
   ccap = replay.close_cap(4096, 2)
   assert ccap == 1536 and int(dense[0].max()) + 1 == 2048
   tables = replay.compact_closes(dense, ccap)
@@ -195,11 +194,15 @@ def test_compaction_drops_ranks_past_the_table():
 
 
 def test_compact_wrappers_reject_bad_inputs():
-  keys = torch.zeros((2, 24), dtype=torch.int64)
+  ev = torch.zeros((2, 24), dtype=torch.int32)
+  dr = torch.zeros((2, 2), dtype=torch.int32)
   with pytest.raises(ValueError):
-    replay.cancel_sums(keys)  # CAP not a power of two
+    replay.cancel_sums(ev, ev, dr)  # CAP not a power of two
+  ev = torch.zeros((2, 16), dtype=torch.int32)
   with pytest.raises(ValueError):
-    replay.cancel_sums(keys.to(torch.int32))
+    replay.cancel_sums(ev.to(torch.int64), ev, dr)
+  with pytest.raises(ValueError):
+    replay.cancel_sums(ev, ev, dr[:1])
   with pytest.raises(ValueError):
     replay.compact_closes(torch.zeros((3, 2, 16), dtype=torch.int32), 8)
   cls = torch.zeros((2, 16), dtype=torch.int32)
@@ -207,3 +210,82 @@ def test_compact_wrappers_reject_bad_inputs():
   with pytest.raises(ValueError):
     replay.replay_positions_compact(
       cls, torch.zeros((3, 1, 8), dtype=torch.int32), nodes, 4, 4)
+
+
+def record_cases():
+  """(ev, cls, drange) of replay_keys on the volumes' streams and on
+  seeded random-byte streams (CAP 128 to 4096, depth ranges up to about
+  CAP / 3, corrupt ones among them)."""
+  for name in VOLUMES:
+    binary, head = _stream(name)
+    yield name, _port_stages(teng.prepare_slice_inputs(binary, 0,
+                                                       head.sz))[1:]
+  for seed in range(12):
+    t, _, _ = random_stream(seed)
+    yield f"seed {seed}", replay.replay_keys(t["packed"], t["nbytes"],
+                                             t["n_chains"])
+
+
+def sorted_order(ev):
+  """Per slice, the active events' positions in the order of the sorted
+  keys, (depth, position), by numpy's lexsort: [(pos, close)]."""
+  out = []
+  for e in ev.numpy():
+    p = np.flatnonzero(e & 1)
+    order = np.lexsort((p, e[p] >> 2))
+    out.append((p[order], (e[p[order]] >> 1) & 1))
+  return out
+
+
+def check_order(dense, ev, cls):
+  """dest and pos of the dense records give exactly the order of the
+  sorted keys, and that of numpy's lexsort of (depth, position); returns
+  the close count."""
+  B, CAP = ev.shape
+  dest, pos = dense[0].to(torch.int64), dense[1].to(torch.int64)
+  skeys = replay.sorted_keys(ev, cls)
+  close = (((skeys >> 2) & 1) > 0) & (skeys != replay.INF)
+  assert torch.equal(pos, (skeys >> 3) & (CAP - 1))
+  assert torch.equal(dest, torch.where(close, torch.cumsum(close, 1) - 1,
+                                       -1))
+  for b, (p, c) in enumerate(sorted_order(ev)):
+    n = len(p)
+    np.testing.assert_array_equal(pos[b, :n].numpy(), p)
+    assert (pos[b, n:] == CAP - 1).all() and (dest[b, n:] == -1).all()
+    np.testing.assert_array_equal(dest[b, :n].numpy(),
+                                  np.where(c > 0, np.cumsum(c) - 1, -1))
+  return int(close.sum())
+
+
+def check_sums(dense, ev, cls, drange):
+  """Each close's sums equal the forward walk's cancels at its position
+  (_close_cancels), and every other slot's sums are 0."""
+  CAP = ev.shape[1]
+  dest, pos, sh, sv = dense.to(torch.int64)
+  close = dest >= 0
+  cancel = replay._close_cancels(ev, cls, drange)
+  for plane, off in ((sh, 0), (sv, CAP)):
+    at = torch.where(close, off + pos, 2 * CAP)
+    assert torch.equal(plane, torch.where(close, torch.gather(cancel, 1, at),
+                                          0))
+
+
+# The depth table is the kernel's (the cuda tests run it at these sizes
+# against the plain version); the CPU wrapper must not depend on it.
+@pytest.mark.parametrize("table", [1, 8])
+@pytest.mark.parametrize("tile", [32, 256])
+def test_cancel_sums_order_is_sorted_keys(monkeypatch, tile, table):
+  monkeypatch.setattr(replay, "TILE", tile)
+  monkeypatch.setattr(replay, "DEPTH_TABLE", table)
+  closes = sum(check_order(replay.cancel_sums(ev, cls, dr), ev, cls)
+               for _, (ev, cls, dr) in record_cases())
+  assert closes > 1000
+
+
+@pytest.mark.parametrize("table", [1, 8])
+@pytest.mark.parametrize("tile", [32, 256])
+def test_cancel_sums_at_closes_equal_walk(monkeypatch, tile, table):
+  monkeypatch.setattr(replay, "TILE", tile)
+  monkeypatch.setattr(replay, "DEPTH_TABLE", table)
+  for _, (ev, cls, dr) in record_cases():
+    check_sums(replay.cancel_sums(ev, cls, dr), ev, cls, dr)

@@ -199,38 +199,97 @@ def test_corrupt_streams_do_not_fault(dev):
     assert torch.equal(g, w)
 
 
-def _compact_stages(t, head):
+def _compact_stages(t, sx, sy):
   """The compact-cancel kernels on the card, each against its plain
   version on the same inputs, and their edge ids against
   replay_positions'."""
   ev, cls, drange = replay.replay_keys(t["packed"], t["nbytes"],
                                        t["n_chains"])
-  skeys = replay.sorted_keys(ev, cls)
-  dense = replay.cancel_sums(skeys)
+  dense = replay.cancel_sums(ev, cls, drange)
   torch.cuda.synchronize()
-  _equal([dense], [replay.cancel_sums_plain(skeys.cpu())])
-  ccap = replay.close_cap(skeys.shape[1], t["nodes"].shape[1])
+  _equal([dense], [replay.cancel_sums_plain(ev.cpu(), cls.cpu(),
+                                            drange.cpu())])
+  ccap = replay.close_cap(ev.shape[1], t["nodes"].shape[1])
   tables = replay.compact_closes(dense, ccap)
   torch.cuda.synchronize()
   _equal([tables], [replay.compact_closes_plain(dense.cpu(), ccap)])
-  ids = replay.replay_positions_compact(cls, tables, t["nodes"], head.sx,
-                                        head.sy)
+  ids = replay.replay_positions_compact(cls, tables, t["nodes"], sx, sy)
   torch.cuda.synchronize()
   _equal([ids], [replay.replay_positions_compact_plain(
-    cls.cpu(), tables.cpu(), t["nodes"].cpu(), head.sx, head.sy)])
-  return ids, replay.replay_positions(ev, cls, drange, t["nodes"],
-                                      head.sx, head.sy)
+    cls.cpu(), tables.cpu(), t["nodes"].cpu(), sx, sy)])
+  want = replay.replay_positions(ev, cls, drange, t["nodes"], sx, sy)
+  torch.cuda.synchronize()
+  _equal([ids], [want])
+  return dense
 
 
+@pytest.mark.parametrize("window", [None, 32, 256])
+@pytest.mark.parametrize("table", [None, 1, 8])
 @pytest.mark.parametrize("tile", [32, 1024])
-def test_compact_kernels_match_plain(dev, monkeypatch, tile):
+def test_compact_kernels_match_plain(dev, monkeypatch, tile, table, window):
+  """cancel_sums with its depth tables in shared memory and (shrunk) in
+  the scratch tensor, and replay_positions_compact at its default
+  window and with windows of 32 and 256 positions (seams every few warp
+  steps), bit-equal to their plain versions on the volumes."""
   monkeypatch.setattr(replay, "TILE", tile)
+  if table:
+    monkeypatch.setattr(replay, "DEPTH_TABLE", table)
+  if window:
+    monkeypatch.setattr(replay, "COMPACT_WINDOW", window)
   for vol in _volumes():
     inputs = teng.prepare_slice_inputs(crackle.compress(vol), 0,
                                        vol.shape[2])
-    ids, want = _compact_stages(teng.params_from_jax(inputs, device=dev),
-                                inputs["head"])
-    _equal([ids], [want])
+    head = inputs["head"]
+    _compact_stages(teng.params_from_jax(inputs, device=dev), head.sx,
+                    head.sy)
+
+
+@pytest.mark.parametrize("window", [None, 32, 1024])
+@pytest.mark.parametrize("table", [None, 1, 8])
+def test_compact_kernels_on_random_streams(dev, monkeypatch, table, window):
+  """The seeded random-byte streams (CAP 128 to 4096, depth ranges up to
+  about CAP / 3, so the 384-entry tables overflow into the scratch
+  tensor on some slices even at the default table)."""
+  if table:
+    monkeypatch.setattr(replay, "DEPTH_TABLE", table)
+  if window:
+    monkeypatch.setattr(replay, "COMPACT_WINDOW", window)
+  for seed in range(50):
+    t, sx, sy = random_stream(seed)
+    _compact_stages({k: v.to(dev) for k, v in t.items()}, sx, sy)
+
+
+@pytest.mark.parametrize("B,CAP", [(1, 4096), (64, 4096), (1, 32768),
+                                   (64, 32768), (1, 65536), (8, 65536)])
+def test_compact_kernels_at_path_shapes(dev, monkeypatch, B, CAP):
+  """Random streams at batches of 1 and 64 and at the CAP of a 512^2
+  slice (32768) and of the split's pieces (65536), at the default window
+  and depth table and with both shrunk."""
+  for table, window in ((None, None), (8, 1024)):
+    if table:
+      monkeypatch.setattr(replay, "DEPTH_TABLE", table)
+      monkeypatch.setattr(replay, "COMPACT_WINDOW", window)
+    for seed in range(2):
+      t, sx, sy = random_stream(seed, B, CAP)
+      _compact_stages({k: v.to(dev) for k, v in t.items()}, sx, sy)
+
+
+def test_compact_replay_takes_any_table_width(dev):
+  """replay_positions_compact reads the tables in 16-byte loads: a width
+  that is no multiple of 4, and a view 4 bytes into its storage, take
+  the same ids."""
+  t, sx, sy = random_stream(3, 4, 1024)
+  ev, cls, dr = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
+  tables = replay.compact_closes_plain(replay.cancel_sums_plain(ev, cls, dr),
+                                       1001)
+  want = replay.replay_positions_compact_plain(cls, tables, t["nodes"], sx,
+                                               sy)
+  flat = torch.cat([torch.zeros(1, dtype=torch.int32), tables.reshape(-1)])
+  for tab in (tables.to(dev), flat.to(dev)[1:].view(tables.shape)):
+    got = replay.replay_positions_compact(cls.to(dev), tab,
+                                          t["nodes"].to(dev), sx, sy)
+    torch.cuda.synchronize()
+    _equal([got], [want])
 
 
 def test_compact_kernels_on_corrupt_streams(dev):
@@ -244,12 +303,10 @@ def test_compact_kernels_on_corrupt_streams(dev):
     bad["packed"] = rng.randint(0, 256, inputs["packed"].shape,
                                 dtype=np.uint8)
     bad["nbytes"] = np.full_like(inputs["nbytes"], bad["packed"].shape[1])
-    _compact_stages(teng.params_from_jax(bad, device=dev), inputs["head"])
+    _compact_stages(teng.params_from_jax(bad, device=dev), 40, 30)
   t = teng.params_from_jax(many_closes_inputs(), device=dev)
-  ev, cls, _ = replay.replay_keys(t["packed"], t["nbytes"], t["n_chains"])
-  assert int(replay.cancel_sums(replay.sorted_keys(ev, cls))[0].max()) \
-    >= replay.close_cap(4096, 2)
-  _compact_stages(t, inputs["head"])
+  dense = _compact_stages(t, 40, 30)
+  assert int(dense[0].max()) >= replay.close_cap(4096, 2)
 
 
 def compact_edge_case(name):
@@ -303,10 +360,18 @@ def test_compact_closes_at_chunk_seams(dev, name):
 
 
 def test_compact_path_decodes_on_card(dev, monkeypatch):
+  """The compact path through its three kernels, and no sort on it."""
   monkeypatch.setattr(replay, "CANCEL_COMPACT", True)
   binary = crackle.compress(np.concatenate([spiral_volume()] * 2, axis=2))
+  sorts = []
+  for mod, name in ((torch, "sort"), (replay, "sorted_keys")):
+    fn = getattr(mod, name)
+    monkeypatch.setattr(mod, name, lambda *a, fn=fn, name=name, **k: (
+      sorts.append(name), fn(*a, **k))[1])
   ct.reset_launches()
   got = ct.upload_stream(binary, dev).decode_window(0, 2, check_crcs=True)
+  torch.cuda.synchronize()
+  assert sorts == []
   assert ct.LAUNCHES["replay_positions"] == 0
   for name in ("cancel_sums", "compact_closes", "replay_positions_compact"):
     assert ct.LAUNCHES[name] == 1

@@ -199,16 +199,16 @@ def _pack(diffs):
   return d[..., 0] | (d[..., 1] << 2) | (d[..., 2] << 4) | (d[..., 3] << 6)
 
 
-def random_stream(seed):
+def random_stream(seed, B=3, CAP=None):
   """Seeded random-byte replay inputs (corrupt or not, the replay must
-  give the oracle's ids): CAP 128 to 4096; per slice uniform bytes, or
-  runs of [1, 1, 2] diffs (a move, a move, a reversal) whose phase makes
-  every pair a branch, so depths climb towards CAP / 3, or a terminate,
-  with a share of uniform noise; random nbytes (full on some slices),
-  n_chains (0 on some) and chain start nodes."""
+  give the oracle's ids): B slices of CAP codepoints (by default 3 of
+  128 to 4096); per slice uniform bytes, or runs of [1, 1, 2] diffs (a
+  move, a move, a reversal) whose phase makes every pair a branch, so
+  depths climb towards CAP / 3, or a terminate, with a share of uniform
+  noise; random nbytes (full on some slices), n_chains (0 on some) and
+  chain start nodes."""
   rng = np.random.RandomState(seed)
-  CAP = 128 << (seed % 6)
-  B = 3
+  CAP = CAP or 128 << (seed % 6)
   sx, sy = rng.randint(1, 40, 2)
   diffs = rng.randint(0, 4, (B, CAP))
   for b in range(B):
