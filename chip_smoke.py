@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phases 8 to 15 several):
+Phases, one line each (phases 8 to 16 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
@@ -76,7 +76,18 @@ Phases, one line each (phases 8 to 15 several):
      decode_window(check_crcs=True) through the split and the gather
      paint and decode_window_ccl_device against the oracle and the
      stored CRCs, launch counts, MVx/s beside the oracle's host decode,
-     stage times and the device memory high-water mark.
+     stage times and the device memory high-water mark;
+ 16. the device encode: codec.compress of the labels that
+     decode_window(0, 512) of the flat 512^3 stream leaves on the card,
+     as their (sx, sy, sz) view, must give the committed stream's bytes,
+     the u64 volume's likewise, and the long-slice volume (on the card)
+     the oracle child's host compress, every compress with no decline
+     logged and ccl_paint launched; the launch counts of the 512^3
+     encode, its memory high-water mark, steady times of each beside
+     the port's host compress of the same labels in this process, the
+     time of stage 1, the fetch and the trace alone and of stage 1's
+     parts, and ccl_paint with no table on the encode's VCG at B = 512
+     and at the encode's batch against its bound.
 
 Any failure raises and exits non-zero; without a CUDA device the
 script exits 2 and prints no result, and it imports nothing of JAX or
@@ -102,6 +113,7 @@ import torch
 import crackle_tpu_torch as ct
 from crackle_tpu_torch import codec as pcodec
 from crackle_tpu_torch.kernels import _build, ccl, crc32c, replay, stats
+from crackle_tpu_torch.kernels import encode as enc
 from crackle_tpu_torch.kernels import decode as dec
 from crackle_tpu_torch.kernels import engine as eng
 
@@ -351,6 +363,7 @@ PATHS = {
            "plant"),
   "analytics": ("replay_keys", "replay_positions", "paint_vcg",
                 "ccl_paint", "slice_stats"),
+  "encode": ("ccl_paint",),
 }
 
 
@@ -1227,6 +1240,10 @@ def run(dev, card, kind, oracles, paths, t_or):
   # 15: the long-slice volume through the split and the gather paint
   launches["long"] = phase_long(dev, paths["long"], errs)
 
+  # 16: the device encode of the labels the flat 512^3 decode left on the
+  # card, of the u64 volume and of the long-slice volume
+  launches["encode"], k0 = phase_encode(dev, stream, bu64, paths)
+
   check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
@@ -1240,6 +1257,8 @@ def run(dev, card, kind, oracles, paths, t_or):
            "path_batch_bound_ms": full[name][2]}
     if also:
       row["also_replaces"] = also
+    if name == "ccl_paint":
+      row.update(k0)
     out.append(row)
   print(card)
   print(json.dumps({"kernels": out}))
@@ -1519,6 +1538,208 @@ def phase_long(dev, paths, errs):
   say(15, long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys,
                           dev))
   return launched
+
+
+def require_bytes(what, got, want):
+  if got != want:
+    at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+              min(len(got), len(want)))
+    raise AssertionError(f"{what}: {len(got)} bytes, want {len(want)}; "
+                         f"first difference at byte {at}")
+
+
+def host_compress(rows, shape):
+  """(seconds of each of two runs, bytes) of the port's host compress of
+  the (sz, sy*sx) rows as the F-order (sx, sy, sz) volume they are."""
+  sx, sy, sz = shape
+  vol = rows.reshape(sz, sy, sx).transpose(2, 1, 0)
+  pcodec.set_engine("numpy")
+  try:
+    secs = []
+    for _ in range(2):
+      t0 = time.perf_counter()
+      out = pcodec.compress(vol)
+      secs.append(time.perf_counter() - t0)
+  finally:
+    pcodec.set_engine("auto")
+  return secs, out
+
+
+def ccl_paint_k0_io(vcg):
+  """(bytes, elements) of ccl_paint with no table: the VCG read once, cc
+  and N written once."""
+  return nbytes_of(vcg) + vcg.numel() * 4 + vcg.shape[0] * 4, vcg.numel()
+
+
+def encode_stage_line(tag, vol):
+  """Host-clock ms of each encode stage alone on vol (sx, sy, sz) on the
+  card, 3 runs each after a warm one: stage 1 (batches of
+  enc.STAGE1_PIX pixels, tables to the host), the host tail
+  (assemble_flat_stream from the packed VCG on the card: fetch, trace
+  and byte assembly), the fetch of the packed VCG alone (pinned chunks
+  on a side stream, to the last event), the trace of the host rows on
+  the thread pool alone; and the device ms (CUDA events, mean of 3) of
+  stage 1's parts on its first batch."""
+  sx, sy, sz = vol.shape
+  zyx = vol.permute(2, 1, 0)
+  st1 = wall_ms(lambda: enc._stage1_volume(zyx), 3)
+  packed, tables, N, crcs, pairs = enc._stage1_volume(zyx)
+  tail = wall_ms(lambda: enc.assemble_flat_stream(
+    packed, tables, N, crcs, pairs, sx, sy, sz, data_width=vol.element_size(),
+    fortran_order=True), 3)
+
+  def fetch():
+    _, chunks = enc._fetch(packed)
+    for *_, ev in chunks:
+      ev.synchronize()
+
+  fe = wall_ms(fetch, 3)
+  host = packed.cpu()
+  perm = pairs < sx * sy * sz // 2
+  tr = wall_ms(lambda: enc._trace(host, sx, sy, perm), 3)
+  threads = pcodec._pool_size(0, sz)
+  step = enc._batch_slices(sz, sx * sy)
+  planes = zyx[:step]
+  vcg = enc.labels_to_vcg(planes)
+  cc, N = enc.ccl_from_labels(planes)
+  parts = {
+    "labels_to_vcg": cuda_ms(lambda: enc.labels_to_vcg(planes), 3),
+    "ccl_paint K=0": cuda_ms(lambda: ccl.ccl_paint(vcg), 3),
+    "crc32c": cuda_ms(lambda: crc32c.crc32c_rows(cc), 3),
+    "component_labels": cuda_ms(lambda: enc.component_labels(planes, cc, N),
+                                3),
+    "pack": cuda_ms(lambda: enc._pack_vcg_nibbles(vcg), 3),
+  }
+  mean = np.mean
+  return (f"{tag} encode stages alone (host clock, 3 runs): stage 1 "
+          + ", ".join(f"{m:.3f}" for m in st1) + f" (mean {mean(st1):.3f})"
+          + f" ms in {-(-sz // step)} batches of {step} slices; host tail "
+          + ", ".join(f"{m:.3f}" for m in tail) + f" (mean {mean(tail):.3f})"
+          + f" ms; fetch of "
+            f"{packed.numel()} packed bytes " + ", ".join(
+              f"{m:.3f}" for m in fe) + f" (mean {mean(fe):.3f}) ms; trace "
+          + ", ".join(f"{m:.3f}" for m in tr) + f" (mean {mean(tr):.3f}) ms on {threads} threads"
+          + f"; stage 1's first batch (B={step}) on the card, ms (CUDA "
+            f"events, mean of 3): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in parts.items())), mean(st1)
+
+
+def card_compress(tag, vol):
+  """codec.compress of labels on the card, which must take the device
+  encode: no decline logged and ccl_paint launched."""
+  before = ct.LAUNCHES["ccl_paint"]
+  with HostDeclines() as declines:
+    out = pcodec.compress(vol)
+  declines.require_none(f"{tag} encode")
+  if ct.LAUNCHES["ccl_paint"] == before:
+    raise AssertionError(f"the {tag} encode launched no ccl_paint")
+  return out
+
+
+def phase_encode(dev, stream, bu64, paths):
+  """compress of labels on the card (the device encode): the flat 512^3
+  stream's decode_window(0, 512) labels, reshaped and permuted, must
+  give the committed stream's bytes, the u64 volume's likewise, and the
+  long-slice volume the oracle's host compress; launches of the 512^3
+  encode (reset just before), its memory high-water, steady times beside
+  the port's host compress of the same labels, stage times, and
+  ccl_paint with no table at B = 512 and at the encode's batch against
+  its bound. Returns (the launch counts, ccl_paint's row keys)."""
+  sx, sy, sz = stream.head.sx, stream.head.sy, stream.head.sz
+  labels, _, _ = stream.decode_window(0, sz)
+  vol = labels.reshape(sz, sy, sx).permute(2, 1, 0)
+  if vol.permute(2, 1, 0).data_ptr() != labels.data_ptr() or \
+     not vol.permute(2, 1, 0).is_contiguous():
+    raise AssertionError("the (z, y, x) view of the decoded labels is a copy")
+  b512 = read(VOL512)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  ct.reset_launches()
+  t0 = time.perf_counter()
+  got = card_compress("512^3", vol)
+  t_first = time.perf_counter() - t0
+  launched = dict(ct.LAUNCHES)
+  peak = torch.cuda.max_memory_allocated() - base
+  require_bytes("compress of the 512^3 labels on the card", got, b512)
+  say(16, f"compress of the 512^3 labels that decode_window(0, {sz}) left "
+          f"on the card (a (z, y, x) view of them, no copy) gives the "
+          f"committed stream's {len(b512)} bytes; first call "
+          f"{t_first * 1e3:.3f} ms; device memory high-water "
+          f"{peak} bytes ({peak / 2 ** 30:.3f} GiB, "
+          f"{peak / labels.numel() / 4:.2f} times the labels' bytes) above "
+          f"{base} bytes held before")
+  say(16, f"encode-path launches {launched}")
+  check_path("encode", launched)
+
+  vols = {"512^3": (vol, paths["512"], b512)}
+  s64 = ct.upload_stream(bu64, dev)
+  lab64, _, _ = s64.decode_window(0, s64.head.sz)
+  h = s64.head
+  vols["u64 256^2x128"] = (lab64.reshape(h.sz, h.sy, h.sx).permute(2, 1, 0),
+                           paths["u64"], bu64)
+  ckl, npy, js = paths["long"]
+  long_rows = np.load(npy)
+  with open(js) as f:
+    secs = json.load(f)
+  lx, ly, lz = SHAPE_LONG
+  lt = torch.from_numpy(long_rows.view(np.int32)).to(dev).view(torch.uint32)
+  vols["long 2048^2x32"] = (lt.reshape(lz, ly, lx).permute(2, 1, 0), npy,
+                            read(ckl))
+  del long_rows
+  stage1 = {}
+  for tag, (v, rows_path, want) in vols.items():
+    if tag != "512^3":
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      base = torch.cuda.memory_allocated()
+      require_bytes(f"compress of the {tag} labels on the card",
+                    card_compress(tag, v), want)
+      peak = torch.cuda.max_memory_allocated() - base
+      say(16, f"compress of the {tag} labels on the card gives the "
+              + ("committed stream's" if tag.startswith("u64") else
+                 "oracle child's host compress's") + f" {len(want)} bytes; "
+              f"device memory high-water {peak} bytes ({peak / 2 ** 30:.3f} "
+              f"GiB, {peak / v.numel() / v.element_size():.2f} times the "
+              f"labels' bytes)")
+    n = v.numel()
+    ms = wall_ms(lambda: require_bytes(
+      f"steady compress of the {tag} labels on the card",
+      card_compress(tag, v), want), 3)
+    rows = np.load(rows_path, mmap_mode="r")
+    hs, hout = host_compress(np.asarray(rows), tuple(v.shape))
+    require_bytes(f"the host compress of the {tag} labels", hout, want)
+    mean = sum(ms) / len(ms)
+    line, stage1[tag] = encode_stage_line(tag, v)
+    say(16, f"steady {tag} compress on the card (host clock) ms: "
+            + ", ".join(f"{m:.3f}" for m in ms) + f"; mean {mean:.3f} ms, "
+            f"{n / mean / 1e3:.1f} MVx/s; the port's host compress of the "
+            f"same labels (numpy engine, this process) s: "
+            + ", ".join(f"{x:.3f}" for x in hs)
+            + f", {n / min(hs) / 1e6:.1f} MVx/s at best"
+            + (f"; the oracle child's compress {secs['compress']:.3f} s"
+               if tag.startswith("long") else ""))
+    say(16, line + f"; stage 1 {100 * stage1[tag] / mean:.1f}% of the "
+                   f"steady encode")
+  del vols, lab64, s64, lt
+
+  # ccl_paint with no table on the encode's VCG of 512^3: at B = 512 and
+  # at the batch the encode runs
+  zyx = vol.permute(2, 1, 0)
+  step = enc._batch_slices(sz, sx * sy)
+  k0 = {}
+  for B in (sz, step):
+    vcg = enc.labels_to_vcg(zyx[:B])
+    ms = cuda_ms(lambda: ccl.ccl_paint(vcg), 3)
+    io = ccl_paint_k0_io(vcg)
+    say(16, "512^3 encode VCG " + share_line("ccl_paint", ms, io, B)
+            + " (K = 0, CUDA events, mean of 3)")
+    if B == step:
+      k0 = {"encode_launches": launched["ccl_paint"],
+            "encode_path_batch": B, "encode_path_batch_ms": ms,
+            "encode_path_batch_bound_ms": bound("ccl_paint", *io)[2]}
+    del vcg
+  return launched, k0
 
 
 def long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys, dev):

@@ -1,7 +1,8 @@
-"""crackle_tpu_torch: the crackle decode path on a torch device.
+"""crackle_tpu_torch: the crackle decode and encode paths on a torch device.
 
-A port of crackle_tpu's device-resident decode to PyTorch, with
-hand-written CUDA kernels for Hopper (sm_90a) in csrc/. It carries its
+A port of crackle_tpu's device-resident decode and device encode to
+PyTorch, with hand-written CUDA kernels for Hopper (sm_90a) in csrc/.
+It carries its
 own copy of the reference's host layer (headers, lib, codec, ops,
 models, native: the numpy and native host engine) and imports nothing
 of crackle_tpu and nothing of JAX.
@@ -12,6 +13,7 @@ of crackle_tpu and nothing of JAX.
   vol = decode_window(binary, 0, 64)          # host numpy, decoded on the card
   mask = decode_window(binary, 0, 64, label=7)
   set_engine("torch")                         # codec.decompress on the card
+  binary = codec.compress(labels_tensor)      # encode stages on its device
 
   arr = CrackleDeviceArray(binary, "cuda")
   cutout = arr[100:300, 50:450, 200:264]  # a uint32/uint64 CUDA tensor

@@ -4,8 +4,11 @@ Host orchestration layer (reference parity: crackle/codec.py,
 src/crackle.hpp). The port's copy of crackle_tpu/codec.py: byte
 plumbing stays on host, per-voxel work runs through the native library
 or the vectorized numpy ops, and decompress reaches the torch decode
-engine (crackle_tpu_torch.kernels.engine) as set_engine selects.
+engine (crackle_tpu_torch.kernels.engine) as set_engine selects;
+compress of a torch tensor (or of numpy input under 'torch') runs its
+per-voxel stages on the device (crackle_tpu_torch.kernels.encode).
 """
+import sys
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 from collections import namedtuple
 
@@ -27,13 +30,15 @@ PinTuple = namedtuple('Pin', ['index', 'depth'])
 # with 'torch' for its 'jax'): 'auto' takes the torch engine on the
 # card when torch.cuda.is_available(), after the native decoder for
 # flat streams; 'numpy' forces the host engine; 'torch' forces the
-# torch engine on its device (the card unless set_engine names another).
+# torch engine on its device (the card unless set_engine names another),
+# and sends compress of numpy input to the device encode there.
 _ENGINE = 'auto'
 _DEVICE = 'cuda'
 
 
 def set_engine(engine: str, device="cuda") -> None:
-  """Select the decode engine, and the torch engine's device."""
+  """Select the decode engine (and, under 'torch', the encode's), and the
+  torch engine's device."""
   global _ENGINE, _DEVICE
   if engine not in ('auto', 'numpy', 'torch'):
     raise ValueError(f"engine must be auto|numpy|torch, got {engine}")
@@ -43,6 +48,11 @@ def set_engine(engine: str, device="cuda") -> None:
 
 def get_engine() -> str:
   return _ENGINE
+
+
+def _is_tensor(x) -> bool:
+  torch = sys.modules.get("torch")
+  return torch is not None and isinstance(x, torch.Tensor)
 
 
 def _torch_engine_enabled() -> bool:
@@ -693,35 +703,97 @@ def _encode_flat_fused(flat, sx, sy, sz, stored_dtype, permissible,
     return None
 
   mapping = np.concatenate(maps) if sz else np.zeros(0, np.uint64)
+  return codes, flat_labels_section(mapping, nums, sxy, stored_dtype), crcs
+
+
+def flat_labels_section(mapping, nums, sxy: int, stored_dtype) -> bytes:
+  """The flat labels section: the sorted unique labels, each slice's
+  component count and each component's key into the unique labels.
+  mapping: every slice's component labels in turn, uint64; nums: (sz,)
+  components a slice."""
   uniq = np.unique(mapping)
   keys = np.searchsorted(uniq, mapping)
   key_width = compute_byte_width(len(uniq))
   component_width = compute_byte_width(sxy)
-  labels_binary = b''.join([
+  return b''.join([
     itoc(len(uniq), 8),
     np.ascontiguousarray(uniq.astype(stored_dtype)).tobytes(),
     np.ascontiguousarray(
-      nums.astype(width2dtype[component_width])).tobytes(),
+      np.asarray(nums).astype(np.uint64)
+      .astype(width2dtype[component_width])).tobytes(),
     np.ascontiguousarray(
       keys.astype(width2dtype[key_width])).tobytes(),
   ])
-  return codes, labels_binary, crcs
+
+
+def container(head: CrackleHeader, codes, labels_binary: bytes, crcs,
+              stored_model: bytes = b'') -> bytes:
+  """The .ckl bytes: the header (its num_label_bytes set here), the z
+  index and its CRC, the labels section, the markov model, each slice's
+  crack code, the labels section's CRC and each slice's CRC (crcs)."""
+  head.num_label_bytes = len(labels_binary)
+  z_index = np.array([len(c) for c in codes], dtype='<u4').tobytes()
+  z_index += itoc(crc32c(z_index), 4)
+  return b''.join([
+    head.tobytes(),
+    z_index,
+    labels_binary,
+    stored_model,
+    *codes,
+    itoc(crc32c(labels_binary), 4),
+    np.asarray(crcs, dtype='<u4').tobytes(),
+  ])
 
 
 def compress(labels: np.ndarray, allow_pins: int = 0,
              markov_model_order: int = 0, bgcolor: Optional[int] = None,
              parallel: int = 0, optimize_pins: Optional[bool] = None
              ) -> bytes:
-  """Compress a 3D labels array into a Crackle bytestream.
+  """Compress a 3D labels array, or a torch tensor on any device, into a
+  Crackle bytestream.
 
   allow_pins: 0 disabled, 1 fast pin solver, 2 greedy-optimal solver.
   markov_model_order: order of the optional crack-code context model.
   bgcolor: manual background color for pin encoding.
   """
-  if np.issubdtype(np.dtype(str(labels.dtype)), np.signedinteger):
+  is_tensor = _is_tensor(labels)
+  if is_tensor:
+    import torch
+    signed = labels.dtype in (torch.int8, torch.int16, torch.int32,
+                              torch.int64)
+  else:
+    signed = np.issubdtype(np.dtype(str(labels.dtype)), np.signedinteger)
+  if signed:
     raise TypeError("Signed integer data types are not currently supported.")
   if labels.ndim > 3:
     raise ValueError(f"{labels.ndim}d arrays are not supported.")
+
+  # A torch tensor, or any input under set_engine('torch'): the
+  # per-voxel encode stages (VCG, CCL, label tables, CRC32C) run on the
+  # tensor's device, or the engine's for numpy input, and only the
+  # serial trace on the host (kernels/encode.py). Numpy and CPU tensors
+  # fall through to the host path where it declines; labels on a card
+  # reach the host path only for pins, markov or another rank, or when
+  # they are empty.
+  if is_tensor or _ENGINE == 'torch':
+    from .kernels import encode as _enc
+    if labels.ndim == 3 and not allow_pins and markov_model_order == 0:
+      forder = is_tensor or bool(labels.flags.f_contiguous)
+      out = _enc.encode_flat_device(
+        labels, parallel=parallel, fortran_order=forder,
+        device=labels.device if is_tensor else _DEVICE)
+      if out is not None:
+        return out
+      if is_tensor and labels.device.type != 'cpu' and labels.numel():
+        raise RuntimeError(
+          f"compress: the device encode declined the labels on "
+          f"{labels.device}: "
+          f"{_enc.decline_reason(labels) or 'the native trace overflowed'}"
+          f"; move them to the CPU for the host encoder")
+    if is_tensor:
+      # the device encode writes fortran_order=True for a tensor; so
+      # does the host path (pins, markov, other ranks)
+      labels = np.asfortranarray(_enc.host_labels(labels))
 
   while labels.ndim < 3:
     labels = labels[..., np.newaxis]
@@ -779,19 +851,7 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
     fused = _encode_flat_fused(
       flat, sx, sy, sz, stored_dtype, permissible, parallel)
     if fused is not None:
-      crack_code_bytes, labels_binary, crack_crcs_arr = fused
-      head.num_label_bytes = len(labels_binary)
-      z_index = np.array(
-        [len(c) for c in crack_code_bytes], dtype='<u4').tobytes()
-      z_index += itoc(crc32c(z_index), 4)
-      return b''.join([
-        head.tobytes(),
-        z_index,
-        labels_binary,
-        *crack_code_bytes,
-        itoc(crc32c(labels_binary), 4),
-        np.asarray(crack_crcs_arr, dtype='<u4').tobytes(),
-      ])
+      return container(head, *fused)
 
   chains_per_z = _encode_boundaries(flat, sx, sy, sz, permissible,
                                     parallel)
@@ -832,25 +892,8 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
       flat, sx, sy, sz, stored_dtype, parallel=parallel
     )
 
-  head.num_label_bytes = len(labels_binary)
-
-  z_index = np.array(
-    [len(c) for c in crack_code_bytes], dtype='<u4'
-  ).tobytes()
-  z_index += itoc(crc32c(z_index), 4)
-
-  labels_binary_crc = itoc(crc32c(labels_binary), 4)
-  crack_crcs_binary = np.asarray(crack_crcs_arr, dtype='<u4').tobytes()
-
-  return b''.join([
-    head.tobytes(),
-    z_index,
-    labels_binary,
-    stored_model,
-    *crack_code_bytes,
-    labels_binary_crc,
-    crack_crcs_binary,
-  ])
+  return container(head, crack_code_bytes, labels_binary, crack_crcs_arr,
+                   stored_model)
 
 
 # ---------------------------------------------------------------------------

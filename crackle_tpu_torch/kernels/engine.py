@@ -34,7 +34,7 @@ logger = logging.getLogger("crackle_tpu_torch.engine")
 def _fallback(fn: str, reason: str):
   """Every None return in this module routes through here so callers
   can tell 'unsupported stream' from 'broken code path'."""
-  logger.warning("%s: declined, use the host decoder: %s", fn, reason)
+  logger.warning("%s: declined, use the host codec: %s", fn, reason)
   return None
 
 

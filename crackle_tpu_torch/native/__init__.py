@@ -11,6 +11,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 
@@ -22,6 +23,9 @@ _LIB = os.path.join(_BUILD, "crackle_native.so")
 
 _lib = None
 _tried = False
+# load() runs from the encode's trace threads too: one thread builds and
+# loads, the others wait for it rather than see None
+_lock = threading.Lock()
 
 
 def _build() -> bool:
@@ -46,9 +50,14 @@ def _build() -> bool:
 def load():
   """Load (building if needed) the native library; None if
   unavailable."""
-  global _lib, _tried
-  if _lib is not None or _tried:
+  if _lib is not None:
     return _lib
+  with _lock:
+    return _lib if _tried else _load()
+
+
+def _load():
+  global _lib, _tried
   _tried = True
   if not os.path.exists(_LIB) or (
     os.path.exists(_SRC)

@@ -14,9 +14,12 @@ import crackle_tpu as crackle
 from crackle_tpu.headers import CrackFormat
 import crackle_tpu_torch as ct
 from crackle_tpu_torch.kernels import ccl, replay, stats
+from crackle_tpu_torch.kernels import encode as tenc
 from crackle_tpu_torch.kernels import engine as teng
 
 from test_jax_decode import CASES, random_volume
+from test_jax_encode import DEVICE_ENCODE_CASES
+from test_jax_encode import random_volume as encode_volume
 from test_torch_ccl import (hard_vcgs, labels_to_vcg, serpentine_vcg,
                             smooth_labels)
 from test_torch_compact import many_closes_inputs
@@ -601,3 +604,117 @@ def test_label_masks_on_card(dev, monkeypatch, numpy_engine, name):
                                     want)
     finally:
       codec.set_engine("numpy")
+
+
+def _on_card(vol, dev):
+  """An unsigned numpy volume as a tensor of its dtype on the card."""
+  signed = {2: np.int16, 4: np.int32, 8: np.int64}
+  unsigned = {2: torch.uint16, 4: torch.uint32, 8: torch.uint64}
+  k = vol.dtype.itemsize
+  if k == 1:
+    return torch.from_numpy(vol).to(dev)
+  return torch.from_numpy(vol.view(signed[k])).to(dev).view(unsigned[k])
+
+
+@pytest.mark.parametrize("shape,nl,seed,smooth,dtype", DEVICE_ENCODE_CASES)
+def test_encode_on_card_matches_host(dev, numpy_engine, shape, nl, seed,
+                                     smooth, dtype):
+  """compress of a tensor on the card, and encode_flat_device of numpy
+  input in F and C order, against the port's host compress."""
+  codec = numpy_engine
+  vol = encode_volume(shape, nl, seed, smooth, dtype)
+  want = codec.compress(vol)
+  ct.reset_launches()
+  assert codec.compress(_on_card(vol, dev)) == want
+  assert ct.LAUNCHES["ccl_paint"] == 1
+  assert tenc.encode_flat_device(vol, device=dev) == want
+  c = np.ascontiguousarray(vol)
+  assert tenc.encode_flat_device(c, fortran_order=False, device=dev) == \
+    codec.compress(c)
+
+
+def test_encode_1024_slices_on_card(dev, numpy_engine):
+  """1024^2 slices, past the reference's VMEM limit: 64-pixel blocks of
+  40 labels, shifted per slice, with scattered single pixels."""
+  rng = np.random.RandomState(74)
+  blocks = rng.randint(0, 40, (17, 17, 4)).astype(np.uint32)
+  vol = np.repeat(np.repeat(blocks, 64, 0), 64, 1)[:1024, :1024]
+  for z in range(4):
+    vol[:, :, z] = np.roll(vol[:, :, z], (5 * z, 3 * z), (0, 1))
+  dots = rng.rand(*vol.shape) < 0.001
+  vol[dots] = rng.randint(0, 40, int(dots.sum()))
+  vol = np.asfortranarray(vol)
+  assert numpy_engine.compress(_on_card(vol, dev)) == \
+    numpy_engine.compress(vol)
+
+
+@pytest.mark.parametrize("tile", [32, 8192])
+def test_encode_at_ccl_tiles(dev, numpy_engine, monkeypatch, tile):
+  monkeypatch.setattr(ccl, "TILE_PIX", tile)
+  vol = encode_volume((300, 77, 5), 6, 71, 3)
+  t = _on_card(vol, dev)
+  zyx = t.permute(2, 1, 0)
+  for got, want in zip(tenc.ccl_from_labels(zyx),
+                       tenc.ccl_from_labels(zyx.cpu())):
+    assert torch.equal(got.cpu(), want)
+  assert numpy_engine.compress(t) == numpy_engine.compress(vol)
+
+
+def test_encode_of_a_decoded_window_takes_no_copy(dev, numpy_engine,
+                                                  monkeypatch):
+  """The (B, sy*sx) labels of DeviceStream.decode_window, reshaped and
+  permuted to (sx, sy, B), reach stage 1 as they lie, and encode to the
+  stream's own bytes."""
+  vol = encode_volume((40, 33, 6), 5, 72, 3)
+  binary = numpy_engine.compress(vol)
+  labels, _, _ = ct.upload_stream(binary, dev).decode_window(0, 6)
+  seen = []
+  stage1 = tenc._stage1_volume
+
+  def spy(zyx):
+    seen.append(zyx.data_ptr())
+    return stage1(zyx)
+
+  monkeypatch.setattr(tenc, "_stage1_volume", spy)
+  assert numpy_engine.compress(
+    labels.reshape(6, 33, 40).permute(2, 1, 0)) == binary
+  assert seen == [labels.data_ptr()]
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.uint32, np.uint64])
+def test_encode_of_a_c_order_tensor_on_card(dev, numpy_engine, dtype):
+  """A tensor in torch's default C order: its (z, y, x) view is copied on
+  the card through the signed view, and the bytes are those of the host
+  compress of the same labels in F order (the tensor's header order)."""
+  vol = encode_volume((37, 29, 5), 6, 75, 3, np.uint64)
+  vol = (vol * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(
+    64 - 8 * np.dtype(dtype).itemsize)
+  vol = np.ascontiguousarray(vol.astype(dtype))
+  t = _on_card(vol, dev)
+  assert t.is_contiguous() and not t.permute(2, 1, 0).is_contiguous()
+  ct.reset_launches()
+  assert numpy_engine.compress(t) == \
+    numpy_engine.compress(np.asfortranarray(vol))
+  assert ct.LAUNCHES["ccl_paint"] == 1
+
+
+def test_compress_on_card_raises_where_encode_declines(dev, numpy_engine,
+                                                        monkeypatch):
+  """Labels on the card never go to the host encoder through a decline."""
+  with pytest.raises(RuntimeError, match="float32, not unsigned"):
+    numpy_engine.compress(torch.zeros((4, 4, 2), device=dev))
+  monkeypatch.setattr(tenc.native, "available", lambda: False)
+  with pytest.raises(RuntimeError, match="native trace library is missing"):
+    numpy_engine.compress(torch.zeros((4, 4, 2), dtype=torch.uint8,
+                                      device=dev))
+
+
+@pytest.mark.parametrize("slices", [1, 3, 8])
+def test_encode_launches_ccl_paint_per_batch(dev, numpy_engine, monkeypatch,
+                                             slices):
+  vol = encode_volume((50, 40, 8), 5, 73, 3, np.uint64)
+  monkeypatch.setattr(tenc, "STAGE1_PIX", slices * 50 * 40)
+  ct.reset_launches()
+  got = numpy_engine.compress(_on_card(vol, dev))
+  assert ct.LAUNCHES["ccl_paint"] == -(-8 // slices)
+  assert got == numpy_engine.compress(vol)

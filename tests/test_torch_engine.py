@@ -137,10 +137,10 @@ def test_upload_to_cuda_without_cuda_raises():
 
 
 def test_port_never_imports_the_reference():
-  """A child process compresses with the port's codec and runs the flat,
-  pins, markov, analytics, array, window-decode, torch-engine decompress
-  and compact paths on the CPU; no module of JAX or of crackle_tpu may
-  be imported."""
+  """A child process compresses with the port's codec (a tensor too)
+  and runs the flat, pins, markov, analytics, array, window-decode,
+  torch-engine decompress and compact paths on the CPU; no module of JAX
+  or of crackle_tpu may be imported."""
   code = (
     "import sys, numpy as np\n"
     "import crackle_tpu_torch as ct\n"
@@ -151,6 +151,9 @@ def test_port_never_imports_the_reference():
     "np.uint32))\n"
     "flat = codec.compress(vol)\n"
     "assert (codec.decompress(flat) == vol).all()\n"
+    "import torch\n"
+    "t = torch.from_numpy(vol.view(np.int32)).view(torch.uint32)\n"
+    "assert codec.compress(t) == flat\n"
     "s = ct.upload_stream(flat, 'cpu')\n"
     "lab, cc, N = s.decode_window(0, 3, check_crcs=True)\n"
     "got = lab.numpy().reshape(3, 10, 12).transpose(2, 1, 0)\n"

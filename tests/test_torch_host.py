@@ -180,6 +180,31 @@ CUTOUT_KEYS = [np.s_[10:30, 5:35, 2:8], np.s_[:, :, 5], np.s_[7],
                np.s_[3:20, 0:20, 1:9], np.s_[0:32, 10:11, 3:9]]
 
 
+def test_native_load_from_many_threads(monkeypatch, tmp_path):
+  """Threads that call native.load() while another builds the library
+  wait for it and get the library, not None: the device encode's trace
+  pool can be the first user of a fresh checkout."""
+  import time
+  from concurrent.futures import ThreadPoolExecutor
+  assert pnative.load() is not None
+  src = tmp_path / "newer.cpp"
+  src.write_text("")
+  later = time.time() + 1000
+  os.utime(src, (later, later))
+
+  def slow_build():
+    time.sleep(0.3)
+    return True
+
+  monkeypatch.setattr(pnative, "_SRC", str(src))
+  monkeypatch.setattr(pnative, "_build", slow_build)
+  monkeypatch.setattr(pnative, "_lib", None)
+  monkeypatch.setattr(pnative, "_tried", False)
+  with ThreadPoolExecutor(8) as pool:
+    libs = list(pool.map(lambda _: pnative.load(), range(8)))
+  assert all(lib is not None for lib in libs)
+
+
 @pytest.mark.parametrize("pins", [0, 1], ids=["flat", "pins"])
 @pytest.mark.parametrize("dtype", [np.uint32, np.uint64])
 def test_device_array_matches_crackle_array(dtype, pins):
