@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phases 8 to 16 several):
+Phases, one line each (phases 8 to 17 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
@@ -87,10 +87,20 @@ Phases, one line each (phases 8 to 16 several):
      the port's host compress of the same labels in this process, the
      time of stage 1, the fetch and the trace alone and of stage 1's
      parts, and ccl_paint with no table on the encode's VCG at B = 512
-     and at the encode's batch against its bound.
+     and at the encode's batch against its bound;
+ 17. the z-sharded codec (crackle_tpu_torch.parallel) on a mesh of every
+     card and on 4 shards of the first (3 for an unaligned z):
+     decompress_sharded of the flat and pins 512^3, u64, markov-5 and
+     256^2 x 128 streams, voxel_counts_sharded, compress_sharded of labels
+     on the card and sharded_roundtrip_step against the oracle and the
+     committed bytes, each path's launches checked shard by shard; the
+     step through a one-rank NCCL group; two processes on the card over
+     gloo (this script run with --rank), and with two cards or more one
+     process a card over NCCL; steady times beside the unsharded calls.
 
 Any failure raises and exits non-zero; without a CUDA device the
-script exits 2 and prints no result, and it imports nothing of JAX or
+script exits 2 and prints no result (run with --rank it is one rank of
+phase 17's two-process run), and it imports nothing of JAX or
 of crackle_tpu (it fails if any such module is loaded, here or in the
 oracle). The last three lines are the card's name and power limit, the
 kernels' JSON (each kernel's launches on its path, its largest
@@ -102,6 +112,7 @@ and {"ok": true, "device": {...}}.
 import json
 import logging
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -109,9 +120,12 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import crackle_tpu_torch as ct
 from crackle_tpu_torch import codec as pcodec
+from crackle_tpu_torch import parallel
+from crackle_tpu_torch.parallel import multihost, sharding
 from crackle_tpu_torch.kernels import _build, ccl, crc32c, replay, stats
 from crackle_tpu_torch.kernels import encode as enc
 from crackle_tpu_torch.kernels import decode as dec
@@ -1244,6 +1258,10 @@ def run(dev, card, kind, oracles, paths, t_or):
   # card, of the u64 volume and of the long-slice volume
   launches["encode"], k0 = phase_encode(dev, stream, bu64, paths)
 
+  # 17: the z-sharded codec on meshes of the card, through a one-rank
+  # NCCL group and in two processes on the card
+  sharded = phase_sharded(dev, stream, paths)
+
   check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
@@ -1259,6 +1277,8 @@ def run(dev, card, kind, oracles, paths, t_or):
       row["also_replaces"] = also
     if name == "ccl_paint":
       row.update(k0)
+    row["sharded_launches"] = {path: n[name] for path, n in sharded.items()
+                               if n.get(name)}
     out.append(row)
   print(card)
   print(json.dumps({"kernels": out}))
@@ -1742,6 +1762,423 @@ def phase_encode(dev, stream, bu64, paths):
   return launched, k0
 
 
+# the kernels each shard of a sharded decode launches, by label format
+SHARD_LAUNCHES = {
+  "flat": {"replay_keys": 1, "replay_positions": 1, "paint_vcg": 1,
+           "ccl_paint": 1},
+  "pins": {"replay_keys": 1, "replay_positions": 1, "paint_vcg": 1,
+           "ccl_min": 1, "plant": 2},
+}
+
+# seconds a rank of phase 17(c) may take
+RANK_TIMEOUT = 300
+
+
+def free_port():
+  with socket.socket() as s:
+    s.bind(("localhost", 0))
+    return s.getsockname()[1]
+
+
+def launched_now():
+  return {k: v for k, v in ct.LAUNCHES.items() if v}
+
+
+def require_launches(what, want):
+  got = launched_now()
+  if got != want:
+    raise AssertionError(f"{what}: launches {got}, want {want}")
+  return got
+
+
+def per_shard(mesh, kind):
+  """The launches of a sharded decode over every shard of mesh."""
+  n = len(mesh.devices)
+  return {k: n * v for k, v in SHARD_LAUNCHES[kind].items()}
+
+
+def encode_launches(mesh, sz, sxy):
+  """ccl_paint launches of compress_sharded: each shard's stage-1
+  batches."""
+  return {"ccl_paint": sum(-(-(z1 - z0) // enc._batch_slices(z1 - z0, sxy))
+                           for _, z0, z1 in sharding._shards(mesh, sz))}
+
+
+def require_counts(what, counts, orc):
+  """counts (keys,) int64 of sharded_roundtrip_step: the oracle's voxel
+  count of each label, then zeros."""
+  n = len(orc["uniq"])
+  got = counts.cpu().numpy()
+  if not np.array_equal(got[:n], orc["count"]) or got[n:].any():
+    raise AssertionError(f"{what}: counts differ from the oracle's")
+
+
+def device_events(fn):
+  """{kind: count} of the device events of one fn() call
+  (torch.profiler): NCCL kernels, memory copies and other kernels."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  kinds = {"nccl": 0, "memcpy": 0, "other": 0}
+  for e in prof.events():
+    if e.device_type == DeviceType.CUDA:
+      name = e.name.lower()
+      kinds["nccl" if "nccl" in name else "memcpy" if "memcpy" in name
+            else "other"] += 1
+  return kinds
+
+
+def phase_sharded(dev, stream, paths):
+  """The z-sharded codec (crackle_tpu_torch.parallel): (a) on a mesh of
+  every card and on 4 shards of the first, decompress_sharded of the
+  flat and pins 512^3, u64 and markov-5 streams (and of the 256^2 x 128
+  u32 stream on 3 shards: 128 % 3 != 0) against the oracle,
+  voxel_counts_sharded of 512^3 against its numpy counts,
+  compress_sharded of the 512^3 and u64 labels on the card against the
+  committed bytes, and sharded_roundtrip_step of 512^3 (counts against
+  the oracle, z_index the slices' byte lengths, cc equal to the
+  unsharded decode's), each path's launches checked shard by shard and
+  no decline logged; (b) the step with a one-rank NCCL group; (c) two
+  processes on the card over gloo (rank_main), and with two cards or
+  more one process a card over NCCL; (d) steady times of the sharded
+  decode and encode at 1 and 4 shards beside the unsharded calls, the
+  gather paint's time and the memory high-water marks. Returns the
+  launch counts of the 4-shard paths."""
+  os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+  os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+  h = stream.head
+  sx, sy, sz = h.sx, h.sy, h.sz
+  b512, bu64, b256, bmkv = (read(p) for p in (VOL512, VOLU64, VOL256,
+                                                VOLMKV))
+  bp512 = read(paths["pins512"])
+  orc = np.load(paths["stats"])
+  cards = parallel.make_mesh()
+  four = parallel.make_mesh([dev] * 4)
+  meshes = {f"{len(cards.devices)}-card mesh": cards,
+            "4 shards on one card": four}
+  streams = [("512^3", b512, paths["512"], "flat"),
+             ("pins 512^3", bp512, paths["512"], "pins"),
+             ("u64 256^2x128", bu64, paths["u64"], "flat"),
+             ("markov-5 256^2x128", bmkv, paths["mkv"], "flat")]
+  runs = [(mt, m, st) for mt, m in meshes.items() for st in streams] + [
+    ("3 shards on one card", parallel.make_mesh([dev] * 3),
+     ("u32 256^2x128 (128 % 3 != 0)", b256, paths["256"], "flat"))]
+  sharded = {}
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  base = torch.cuda.memory_allocated()
+  with HostDeclines() as declines:
+    for mtag, mesh, (tag, binary, npy, kind) in runs:
+      ct.reset_launches()
+      t0 = time.perf_counter()
+      got = parallel.decompress_sharded(binary, mesh)
+      ms = (time.perf_counter() - t0) * 1e3
+      if got is None:
+        raise AssertionError(f"{mtag}: decompress_sharded declined {tag}")
+      require_volume(f"{mtag} decompress_sharded {tag}", got,
+                     np.load(npy, mmap_mode="r"), pcodec.header(binary))
+      n = require_launches(f"{mtag} decompress_sharded {tag}",
+                           per_shard(mesh, kind))
+      if mesh is four:
+        sharded[f"decode {tag}"] = n
+      say(17, f"{mtag}: decompress_sharded of {tag} equal to the oracle "
+              f"(first call {ms:.3f} ms); launches {n}")
+    del got
+    want = dict(zip(orc["uniq"].tolist(), orc["count"].tolist()))
+    for mtag, mesh in meshes.items():
+      ct.reset_launches()
+      if parallel.voxel_counts_sharded(b512, mesh) != want:
+        raise AssertionError(f"{mtag}: voxel_counts_sharded of 512^3 differs "
+                             f"from the oracle")
+      n = require_launches(f"{mtag} voxel_counts_sharded", per_shard(mesh,
+                                                                     "flat"))
+      if mesh is four:
+        sharded["voxel_counts 512^3"] = n
+      say(17, f"{mtag}: voxel_counts_sharded of 512^3 equal to the oracle's "
+              f"numpy counts of {len(want)} labels; launches {n}")
+
+    labels, _, _ = stream.decode_window(0, sz)
+    vol = labels.reshape(sz, sy, sx).permute(2, 1, 0)
+    s64 = ct.upload_stream(bu64, dev)
+    h64 = s64.head
+    lab64, _, _ = s64.decode_window(0, h64.sz)
+    v64 = lab64.reshape(h64.sz, h64.sy, h64.sx).permute(2, 1, 0)
+    del s64
+    for mtag, mesh in meshes.items():
+      for tag, v, binary in (("512^3", vol, b512), ("u64 256^2x128", v64,
+                                                     bu64)):
+        ct.reset_launches()
+        require_bytes(f"{mtag} compress_sharded of the {tag} labels on the "
+                      f"card", parallel.compress_sharded(v, mesh), binary)
+        n = require_launches(f"{mtag} compress_sharded {tag}", encode_launches(
+          mesh, v.shape[2], v.shape[0] * v.shape[1]))
+        if mesh is four:
+          sharded[f"encode {tag}"] = n
+        say(17, f"{mtag}: compress_sharded of the {tag} labels on the card "
+                f"gives the committed stream's {len(binary)} bytes; "
+                f"launches {n}")
+
+    inputs = eng.prepare_slice_inputs(b512, 0, sz)
+    _, cum, keys = eng._flat_label_tables(h, b512)
+    args = (inputs["packed"], inputs["nbytes"], inputs["nodes"],
+            inputs["n_chains"], keys, cum[:sz])
+    perm = h.crack_format == ct.CrackFormat.PERMISSIBLE
+    cc0, _, _ = ct.decode_window_ccl_device(b512, 0, sz, dev)
+    for mtag, mesh in meshes.items():
+      ct.reset_launches()
+      cc, counts, z_index = parallel.sharded_roundtrip_step(
+        mesh, sx, sy, perm)(*args)
+      n = require_launches(f"{mtag} sharded_roundtrip_step", per_shard(
+        mesh, "flat"))
+      require_counts(f"{mtag} sharded_roundtrip_step", counts, orc)
+      if not np.array_equal(z_index.cpu().numpy(), inputs["nbytes"]):
+        raise AssertionError(f"{mtag}: z_index != the slices' byte lengths")
+      require_equal(f"{mtag} sharded_roundtrip_step cc", cc, cc0)
+      if mesh is four:
+        sharded["roundtrip 512^3"] = n
+      say(17, f"{mtag}: sharded_roundtrip_step of 512^3: counts equal to the "
+              f"oracle's, z_index == nbytes, cc equal to "
+              f"decode_window_ccl_device's; launches {n}")
+    del cc
+    ref = os.path.join(os.path.dirname(paths["stats"]), "sharded_ref.npz")
+    np.savez(ref, counts=counts.cpu().numpy(), z_index=z_index.cpu().numpy())
+  say(17, declines.require_none("sharded"))
+  peak = torch.cuda.max_memory_allocated() - base
+  say(17, f"(a) device memory high-water {peak} bytes ({peak / 2 ** 30:.3f} "
+          f"GiB) above {base} bytes held before")
+
+  # (b) the step with a one-rank NCCL group: its all_reduce and
+  # all_gather_into_tensor run through NCCL on the card
+  dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                          f"{free_port()}", world_size=1, rank=0)
+  try:
+    g = parallel.make_mesh([dev] * 4, group=dist.group.WORLD)
+    step = parallel.sharded_roundtrip_step(g, sx, sy, perm)
+    cc, counts, z_index = step(*args)
+    require_counts("one-rank NCCL sharded_roundtrip_step", counts, orc)
+    if not np.array_equal(z_index.cpu().numpy(), inputs["nbytes"]):
+      raise AssertionError("one-rank NCCL: z_index != the slices' byte "
+                           "lengths")
+    require_equal("one-rank NCCL sharded_roundtrip_step cc", cc, cc0)
+    del cc, cc0
+    say(17, f"(b) one-rank nccl group ({dist.get_backend()}, NCCL "
+            f"{torch.cuda.nccl.version()}, collectives on "
+            f"{sharding.collective_device(g.group)}): "
+            f"sharded_roundtrip_step on 4 shards gives (a)'s cc, counts and "
+            f"z_index; device events of one step (torch.profiler; NCCL "
+            f"runs a one-rank collective as a copy): "
+            f"{device_events(lambda: step(*args))}")
+  finally:
+    dist.destroy_process_group()
+
+  # (c) two processes on the card over gloo; with two cards or more, one
+  # process a card over NCCL as well
+  del counts, z_index
+  runs = [("gloo", [f"cuda:{torch.cuda.current_device()}"] * 2)]
+  if torch.cuda.device_count() >= 2:
+    runs.append(("nccl", [f"cuda:{i}" for i in
+                          range(torch.cuda.device_count())]))
+  for backend, devices in runs:
+    wall, lines = spawn_ranks(backend, devices, paths, ref)
+    for line in lines:
+      say(17, f"(c) {line}")
+    say(17, f"(c) {len(devices)} processes over {backend} on {devices}: "
+            f"compress_shard -> assemble_shards equal to the committed "
+            f"512^3 bytes, decompress_shard of each window equal to the "
+            f"oracle, all_gather of the windows' label histograms equal to "
+            f"its counts, sharded_roundtrip_step across the ranks equal to "
+            f"(a)'s; wall {wall:.3f} s")
+
+  # (d) steady times beside the unsharded calls
+  one = parallel.make_mesh([dev])
+  ms = {"decompress_sharded 1 shard": wall_ms(
+          lambda: parallel.decompress_sharded(b512, one), 3),
+        "decompress_sharded 4 shards": wall_ms(
+          lambda: parallel.decompress_sharded(b512, four), 3),
+        "decode_window(0, 512, check_crcs=False)": wall_ms(
+          lambda: ct.decode_window(b512, 0, sz, check_crcs=False,
+                                   device=dev), 3)}
+  enc_ms = {"compress_sharded 1 shard": wall_ms(
+              lambda: parallel.compress_sharded(vol, one), 3),
+            "compress_sharded 4 shards": wall_ms(
+              lambda: parallel.compress_sharded(vol, four), 3),
+            "codec.compress": wall_ms(lambda: pcodec.compress(vol), 3)}
+  for what, d in (("decode of 512^3 to host numpy", ms),
+                  ("encode of the 512^3 labels on the card", enc_ms)):
+    say(17, f"(d) steady {what} (host clock, 3 runs after a warm one) ms: "
+            + "; ".join(f"{k} " + ", ".join(f"{x:.3f}" for x in v)
+                        + f" (mean {np.mean(v):.3f}, "
+                          f"{sx * sy * sz / np.mean(v) / 1e3:.1f} MVx/s)"
+                        for k, v in d.items()))
+  uniq, cum, keys = eng._flat_label_tables(h, b512)
+  cc, _, _ = ct.decode_window_ccl_device(b512, 0, sz, dev)
+  tabs = eng._gather_tables(uniq, cum, keys, 0, sz, dev)
+  gms = cuda_ms(lambda: dec.paint_labels_u32(cc, *tabs), 3)
+  say(17, f"(d) the sharded flat decode's gather paint (paint_labels_u32: "
+          f"keys[cc + offset] into the dictionary, plain torch indexing) "
+          f"at B=512 of 512^3: {gms:.3f} ms (CUDA events, mean of 3)")
+  return sharded
+
+
+def spawn_ranks(backend, devices, paths, ref):
+  """Run rank_main in one child process a device of devices over a
+  group of backend, under RANK_TIMEOUT; fail on any rank that fails or
+  hangs. Returns (the wall seconds, each rank's report line)."""
+  tmp = os.path.dirname(paths["stats"])
+  port = free_port()
+  logs = [os.path.join(tmp, f"rank{r}_{backend}.log")
+          for r in range(len(devices))]
+  t0 = time.perf_counter()
+  procs = []
+  for r, (d, log) in enumerate(zip(devices, logs)):
+    spec = {"rank": r, "world": len(devices), "port": port,
+            "backend": backend, "device": d, "rows": paths["512"],
+            "stats": paths["stats"], "ref": ref, "dir": tmp}
+    with open(log, "w") as f:
+      procs.append(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank",
+         json.dumps(spec)], cwd=ROOT, stdout=f, stderr=subprocess.STDOUT))
+  try:
+    while any(p.poll() is None for p in procs):
+      if time.perf_counter() - t0 > RANK_TIMEOUT or any(
+          p.returncode not in (None, 0) for p in procs):
+        break
+      time.sleep(0.1)
+  finally:
+    for p in procs:
+      if p.poll() is None:
+        p.kill()
+      p.wait()
+  wall = time.perf_counter() - t0
+  lines = []
+  for r, (p, log) in enumerate(zip(procs, logs)):
+    with open(log) as f:
+      out = f.read()
+    if p.returncode != 0 or f"rank {r} OK" not in out:
+      raise AssertionError(f"rank {r} of the {backend} run on {devices} "
+                           f"failed ({p.returncode}) after {wall:.1f} s:\n"
+                           f"{out[-6000:]}")
+    lines += [x for x in out.splitlines() if x.startswith(f"rank {r} ")]
+  return wall, lines
+
+
+def rank_main(spec):
+  """One rank of phase 17(c) (chip_smoke.py --rank SPEC, SPEC a JSON
+  object: rank, world, port, backend, device, the oracle's 512^3 rows
+  and statistics, the parent's (a) counts and z_index, a directory):
+  compress_shard of its host_z_window of the 512^3 labels as a tensor on
+  its device under set_engine('torch'); a barrier; rank 0 splices the
+  shards (assemble_shards) into the committed stream's bytes;
+  decompress_shard of its window on the device against the oracle; an
+  all_gather of the windows' label histograms against the oracle's
+  counts; sharded_roundtrip_step on 2 shards a rank across the ranks
+  against (a)'s counts and z_index, its cc through the stored CRCs. No
+  decline may be logged."""
+  rank, world, backend = spec["rank"], spec["world"], spec["backend"]
+  dev = torch.device(spec["device"])
+  torch.cuda.set_device(dev)
+  t_start = time.perf_counter()
+  multihost.init_distributed(f"localhost:{spec['port']}", world, rank,
+                             backend=backend)
+  group = dist.group.WORLD
+  b512 = read(VOL512)
+  head = pcodec.header(b512)
+  sx, sy, sz = head.sx, head.sy, head.sz
+  rows = np.load(spec["rows"], mmap_mode="r")
+  orc = np.load(spec["stats"])
+  z0, z1 = multihost.host_z_window(sz, world, rank)
+  t = torch.from_numpy(np.ascontiguousarray(rows[z0:z1]).view(np.int32)).to(
+    dev)
+  win = t.view(torch.uint32).reshape(z1 - z0, sy, sx).permute(2, 1, 0)
+  torch.cuda.synchronize(dev)
+  torch.cuda.reset_peak_memory_stats(dev)
+  base = torch.cuda.memory_allocated(dev)
+  secs = {}
+  pcodec.set_engine("torch", device=dev)
+  try:
+    with HostDeclines() as declines:
+      ct.reset_launches()
+      t0 = time.perf_counter()
+      shard = multihost.compress_shard(win)
+      secs["compress_shard"] = time.perf_counter() - t0
+      if not ct.LAUNCHES["ccl_paint"]:
+        raise AssertionError(f"rank {rank}: compress_shard launched no "
+                             f"ccl_paint")
+      with open(os.path.join(spec["dir"], f"shard{rank}_{backend}.ckl"),
+                "wb") as f:
+        f.write(shard)
+      dist.barrier()
+      if rank == 0:
+        parts = []
+        for r in range(world):
+          with open(os.path.join(spec["dir"], f"shard{r}_{backend}.ckl"),
+                    "rb") as f:
+            parts.append(f.read())
+        t0 = time.perf_counter()
+        require_bytes("assemble_shards of the ranks' shards",
+                      multihost.assemble_shards(parts), b512)
+        secs["assemble_shards"] = time.perf_counter() - t0
+      dist.barrier()
+      ct.reset_launches()
+      t0 = time.perf_counter()
+      out, (a, b) = multihost.decompress_shard(b512, world, rank)
+      secs["decompress_shard"] = time.perf_counter() - t0
+      dec_launches = launched_now()
+    declines.require_none(f"rank {rank}")
+  finally:
+    pcodec.set_engine("auto")
+  require_volume(f"rank {rank} decompress_shard [{a}, {b})", out, rows[a:b],
+                 head)
+  if not dec_launches.get("ccl_paint"):
+    raise AssertionError(f"rank {rank}: decompress_shard did not run on the "
+                         f"card: {dec_launches}")
+  del out
+
+  cdev = sharding.collective_device(group)
+  uniq = torch.from_numpy(orc["uniq"].astype(np.int64)).to(dev)
+  hist = torch.bincount(torch.searchsorted(
+    uniq, t.reshape(-1).to(torch.int64) & 0xFFFFFFFF), minlength=len(uniq))
+  hists = [torch.zeros_like(hist, device=cdev) for _ in range(world)]
+  dist.all_gather(hists, hist.to(cdev))
+  if not np.array_equal(torch.stack(hists).sum(0).cpu().numpy(),
+                        orc["count"]):
+    raise AssertionError(f"rank {rank}: gathered histograms differ from the "
+                         f"oracle's counts")
+  del t, win
+
+  ref = np.load(spec["ref"])
+  inputs = eng.prepare_slice_inputs(b512, z0, z1)
+  _, cum, keys = eng._flat_label_tables(head, b512)
+  mesh = parallel.make_mesh([dev] * 2, group=group)
+  ct.reset_launches()
+  t0 = time.perf_counter()
+  cc, counts, z_index = parallel.sharded_roundtrip_step(
+    mesh, sx, sy, head.crack_format == ct.CrackFormat.PERMISSIBLE)(
+      inputs["packed"], inputs["nbytes"], inputs["nodes"],
+      inputs["n_chains"], keys, cum[z0:z1])
+  torch.cuda.synchronize(dev)
+  secs["sharded_roundtrip_step"] = time.perf_counter() - t0
+  require_launches(f"rank {rank} sharded_roundtrip_step",
+                   per_shard(mesh, "flat"))
+  if not (np.array_equal(counts.cpu().numpy(), ref["counts"])
+          and np.array_equal(z_index.cpu().numpy(), ref["z_index"])):
+    raise AssertionError(f"rank {rank}: the cross-rank step differs from "
+                         f"(a)'s counts or z_index")
+  eng.crc_gate(cc, eng._stored_crcs(head, b512, dev)[z0:z1], z0)
+  peak = torch.cuda.max_memory_allocated(dev) - base
+  check_no_reference()
+  dist.destroy_process_group()
+  print(f"rank {rank} of {world} ({backend}, {dev}, rows [{z0}, {z1})): "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + f"; process wall {time.perf_counter() - t_start:.3f} s; device "
+          f"memory high-water {peak} bytes ({peak / 2 ** 30:.3f} GiB) above "
+          f"the window's {base} bytes", flush=True)
+  print(f"rank {rank} OK", flush=True)
+  return 0
+
+
 def long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys, dev):
   """Host and device times of each stage of the long-slice decode."""
   sx, sy, sz = head.sx, head.sy, head.sz
@@ -2013,4 +2450,6 @@ def busy_share(s):
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--rank"]:
+    sys.exit(rank_main(json.loads(sys.argv[2])))
   sys.exit(main())

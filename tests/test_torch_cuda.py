@@ -13,6 +13,7 @@ import torch
 import crackle_tpu as crackle
 from crackle_tpu.headers import CrackFormat
 import crackle_tpu_torch as ct
+from crackle_tpu_torch import parallel as tpar
 from crackle_tpu_torch.kernels import ccl, replay, stats
 from crackle_tpu_torch.kernels import encode as tenc
 from crackle_tpu_torch.kernels import engine as teng
@@ -22,6 +23,10 @@ from test_jax_encode import DEVICE_ENCODE_CASES
 from test_jax_encode import random_volume as encode_volume
 from test_torch_ccl import (hard_vcgs, labels_to_vcg, serpentine_vcg,
                             smooth_labels)
+from test_torch_multihost import run_two_ranks
+from test_torch_sharding import ENCODES, STREAMS, stream
+from test_torch_sharding import encode_volume as sharded_encode_volume
+from test_torch_sharding import ref_compress, roundtrip_case
 from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, random_stream, spiral_volume
@@ -718,3 +723,91 @@ def test_encode_launches_ccl_paint_per_batch(dev, numpy_engine, monkeypatch,
   got = numpy_engine.compress(_on_card(vol, dev))
   assert ct.LAUNCHES["ccl_paint"] == -(-8 // slices)
   assert got == numpy_engine.compress(vol)
+
+
+def test_make_mesh_takes_every_card(dev):
+  m = tpar.make_mesh()
+  assert m.devices == tuple(torch.device("cuda", i)
+                            for i in range(torch.cuda.device_count()))
+  assert tpar.make_mesh(["cuda"]).devices == (
+    torch.device("cuda", torch.cuda.current_device()),)
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+@pytest.mark.parametrize("name", list(STREAMS))
+def test_sharded_decode_on_card(dev, numpy_engine, shards, name):
+  """decompress_sharded on a mesh of shards on the card, against the host
+  codec; each shard launches each kernel of its path."""
+  vol, binary = stream(name)
+  ct.reset_launches()
+  got = tpar.decompress_sharded(binary, tpar.make_mesh([dev] * shards))
+  np.testing.assert_array_equal(got, numpy_engine.decompress(binary))
+  np.testing.assert_array_equal(got, vol)
+  per_shard = {"replay_keys": 1, "replay_positions": 1, "paint_vcg": 1}
+  per_shard.update({"ccl_min": 1, "plant": 2}
+                   if crackle.header(binary).label_format == 2
+                   else {"ccl_paint": 1})
+  assert {k: v for k, v in ct.LAUNCHES.items() if v} == {
+    k: shards * v for k, v in per_shard.items()}
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+def test_sharded_counts_and_step_on_card(dev, shards):
+  vol, binary, head, inputs, keys, offs, (rcc, rcounts, rz) = \
+    roundtrip_case()
+  m = tpar.make_mesh([dev] * shards)
+  uniq, counts = np.unique(vol, return_counts=True)
+  assert tpar.voxel_counts_sharded(binary, m) == dict(
+    zip(uniq.tolist(), counts.tolist()))
+  step = tpar.sharded_roundtrip_step(m, 8, 8,
+                                     permissible=head.crack_format == 1)
+  cc, counts, z_index = step(inputs["packed"], inputs["nbytes"],
+                             inputs["nodes"], inputs["n_chains"], keys, offs)
+  assert cc.device.type == "cuda"
+  np.testing.assert_array_equal(cc.cpu().numpy(), rcc)
+  np.testing.assert_array_equal(counts.cpu().numpy(), rcounts)
+  np.testing.assert_array_equal(z_index.cpu().numpy(), rz)
+
+
+@pytest.mark.parametrize("shards", [1, 3])
+@pytest.mark.parametrize("i", range(len(ENCODES)))
+def test_compress_sharded_on_card(dev, numpy_engine, shards, i):
+  vol = sharded_encode_volume(ENCODES[i])
+  want, _ = ref_compress(i)
+  m = tpar.make_mesh([dev] * shards)
+  ct.reset_launches()
+  assert tpar.compress_sharded(_on_card(vol, dev), m) == want
+  assert ct.LAUNCHES["ccl_paint"] == min(shards, vol.shape[2])
+  assert tpar.compress_sharded(vol, m) == want
+
+
+def test_one_rank_nccl_group_on_card(dev):
+  """sharded_roundtrip_step with a one-rank nccl group: the all_reduce
+  and all_gather_into_tensor go through NCCL on the card."""
+  import socket
+  import torch.distributed as dist
+  vol, binary, head, inputs, keys, offs, (rcc, rcounts, rz) = \
+    roundtrip_case()
+  s = socket.socket()
+  s.bind(("localhost", 0))
+  port = s.getsockname()[1]
+  s.close()
+  dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                          world_size=1, rank=0)
+  try:
+    m = tpar.make_mesh([dev] * 2, group=dist.group.WORLD)
+    assert tpar.sharding.collective_device(m.group).type == "cuda"
+    step = tpar.sharded_roundtrip_step(m, 8, 8,
+                                       permissible=head.crack_format == 1)
+    cc, counts, z_index = step(inputs["packed"], inputs["nbytes"],
+                               inputs["nodes"], inputs["n_chains"], keys,
+                               offs)
+    np.testing.assert_array_equal(counts.cpu().numpy(), rcounts)
+    np.testing.assert_array_equal(z_index.cpu().numpy(), rz)
+    np.testing.assert_array_equal(cc.cpu().numpy(), rcc)
+  finally:
+    dist.destroy_process_group()
+
+
+def test_two_process_gloo_run_on_card(dev):
+  run_two_ranks(str(dev))
