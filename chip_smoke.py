@@ -90,13 +90,30 @@ Phases, one line each (phases 8 to 17 several):
      and at the encode's batch against its bound;
  17. the z-sharded codec (crackle_tpu_torch.parallel) on a mesh of every
      card and on 4 shards of the first (3 for an unaligned z):
-     decompress_sharded of the flat and pins 512^3, u64, markov-5 and
-     256^2 x 128 streams, voxel_counts_sharded, compress_sharded of labels
+     decompress_sharded of the flat and pins 512^3, u64, markov-5,
+     256^2 x 128 and long-slice 2048^2 x 32 streams (the long slices
+     taken whole), voxel_counts_sharded, compress_sharded of labels
      on the card and sharded_roundtrip_step against the oracle and the
      committed bytes, each path's launches checked shard by shard; the
      step through a one-rank NCCL group; two processes on the card over
      gloo (this script run with --rank), and with two cards or more one
-     process a card over NCCL; steady times beside the unsharded calls.
+     process a card over NCCL; steady times beside the unsharded calls;
+ 18. the stream operations and analytics under set_engine('torch'),
+     against four more oracle children (on set_engine('numpy'), started
+     when the first three end and waited for in phase 3, before
+     anything is timed): (a) voxel_connectivity_graph, 4- and
+     6-connected, of the flat and pins 512^3, markov-5 and u64 256^2 x
+     128 and long-slice streams, byte-equal to the host loop, with their
+     launches (the replay kernels, and the CCL ones for 6-connectivity),
+     no CRC pass, steady ms, MVx/s and the card's busy share; (b)
+     structure_equal of an equal and an unequal pair of 512^3 streams;
+     (c) contacts of the flat 512^3 (anisotropy (4, 4, 40)), pins 512^3
+     and u64 streams, == the host loop's dicts; (d) each (8 labels,
+     cropped), array_equal, mode_pooling_2x2x1 and connected_components
+     (6 and 26) of the 256^2 x 128 stream, equal to the oracle's; (e)
+     remap, renumber, mask and zsplit of 512^3 decoded on the card with
+     the CRC gate, equal to the oracle volume edited in numpy. No call
+     may decline.
 
 Any failure raises and exits non-zero; without a CUDA device the
 script exits 2 and prints no result (run with --rank it is one rank of
@@ -124,7 +141,9 @@ import torch.distributed as dist
 
 import crackle_tpu_torch as ct
 from crackle_tpu_torch import codec as pcodec
+from crackle_tpu_torch import operations as ops
 from crackle_tpu_torch import parallel
+from crackle_tpu_torch.ops import analytics
 from crackle_tpu_torch.parallel import multihost, sharding
 from crackle_tpu_torch.kernels import _build, ccl, crc32c, replay, stats
 from crackle_tpu_torch.kernels import encode as enc
@@ -172,6 +191,19 @@ CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
 #              (nuclei_volume) compressed flat into ckl, decompressed and
 #              checked against it; npy receives it as (sz, sy*sx), json
 #              the seconds of each step
+#   vcg:       [ckl, connectivity, npy] triples: npy receives
+#              operations.voxel_connectivity_graph (the host loop) as
+#              (sz, sy, sx) uint8
+#   contacts:  [ckl, anisotropy, npz] triples: npz receives
+#              operations.contacts as lo, hi (uint64) and area columns
+#   each:      [ckl, n, npz]: npz receives analytics.each's cropped image
+#              of each of the stream's first n labels, by label
+#   array_equal: [ckl, ckl] pairs; json receives their results
+#   mode_pooling: [ckl, out]: out receives operations.mode_pooling_2x2x1
+#   cc:        [ckl, connectivity, out] triples: out receives
+#              operations.connected_components
+#   json:      the file that receives the array_equal results and the
+#              seconds of each of the steps above
 # Each step's end is logged to stderr with the seconds since the start.
 # The oracle runs the port's host engine only (set_engine('numpy'), so
 # that no stream reaches the card): flat streams through the native
@@ -333,6 +365,49 @@ if "long" in spec:
   with open(js, "w") as f:
     json.dump(secs, f)
   done("the long-slice volume")
+if "json" in spec:
+  from crackle_tpu_torch import operations
+  from crackle_tpu_torch.ops import analytics
+  out = {"secs": {}, "array_equal": []}
+
+  def timed(step, fn):
+    t = time.perf_counter()
+    res = fn()
+    out["secs"][step] = time.perf_counter() - t
+    done(step)
+    return res
+
+  for src, c, dst in spec.get("vcg", []):
+    v = timed(f"vcg{c} {os.path.basename(src)}",
+              lambda: operations.voxel_connectivity_graph(read(src), c))
+    np.save(dst, np.ascontiguousarray(v.transpose(2, 1, 0)))
+  for src, an, dst in spec.get("contacts", []):
+    d = timed(f"contacts {os.path.basename(src)}",
+              lambda: operations.contacts(read(src), tuple(an)))
+    k = np.array(sorted(d), np.uint64).reshape(-1, 2)
+    np.savez(dst, lo=k[:, 0], hi=k[:, 1],
+             area=np.array([d[tuple(r)] for r in k.tolist()], np.float64))
+  if "each" in spec:
+    src, n, dst = spec["each"]
+    b = read(src)
+    labels = [int(u) for u in codec.labels(b)[:n]]
+    imgs = timed("each", lambda: list(analytics.each(b, labels=labels)))
+    np.savez(dst, **{str(k): v for k, v in imgs})
+  for a, b in spec.get("array_equal", []):
+    out["array_equal"].append(timed(
+      f"array_equal {os.path.basename(a)} {os.path.basename(b)}",
+      lambda: operations.array_equal(read(a), read(b))))
+  if "mode_pooling" in spec:
+    src, dst = spec["mode_pooling"]
+    with open(dst, "wb") as f:
+      f.write(timed("mode_pooling_2x2x1", lambda: operations.
+                    mode_pooling_2x2x1(read(src))))
+  for src, c, dst in spec.get("cc", []):
+    with open(dst, "wb") as f:
+      f.write(timed(f"connected_components {c}", lambda: operations.
+                    connected_components(read(src), c)))
+  with open(spec["json"], "w") as f:
+    json.dump(out, f)
 loaded = [m for m in sys.modules if m.split(".")[0] in ("jax", "crackle_tpu")]
 if loaded:
   sys.exit(f"the oracle imported the reference: {loaded}")
@@ -378,6 +453,12 @@ PATHS = {
   "analytics": ("replay_keys", "replay_positions", "paint_vcg",
                 "ccl_paint", "slice_stats"),
   "encode": ("ccl_paint",),
+  # phase 18: the VCG from the replay kernels alone; with 6-connectivity
+  # the labels too, from the same VCG
+  "vcg4": ("replay_keys", "replay_positions", "paint_vcg"),
+  "vcg6": ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"),
+  "vcg6 pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min",
+                "plant"),
 }
 
 
@@ -908,6 +989,15 @@ def run(dev, card, kind, oracles, paths, t_or):
   say(3, f"host oracle done in {t_or:.1f} s (three child processes: five "
          "decodes, the 512^3 pins compress, label statistics, cutouts, "
          "the 1024^2 and long-slice volumes)")
+  # phase 18's oracle needs the pins and long-slice streams just written;
+  # it ends before anything is timed, as the first one does
+  t_or = time.perf_counter()
+  procs, ops_out = start_ops_oracle(paths)
+  oracles.extend(procs)
+  ops_oracle = finish_ops_oracle(procs, ops_out)
+  say(3, f"operations oracle done in {time.perf_counter() - t_or:.1f} s "
+         f"(four child processes: the host-loop VCGs, contacts, each, "
+         f"array_equal, mode_pooling_2x2x1, connected_components)")
 
   # kernel, plain and library-call times at the 512^3 slice shapes
   # (first 32 slices), and each kernel's bound on the same inputs
@@ -1262,6 +1352,9 @@ def run(dev, card, kind, oracles, paths, t_or):
   # NCCL group and in two processes on the card
   sharded = phase_sharded(dev, stream, paths)
 
+  # 18: the stream operations and analytics on the card
+  launches["operations"] = phase_operations(dev, ops_oracle, paths)
+
   check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
@@ -1279,6 +1372,7 @@ def run(dev, card, kind, oracles, paths, t_or):
       row.update(k0)
     row["sharded_launches"] = {path: n[name] for path, n in sharded.items()
                                if n.get(name)}
+    row["operations_launches"] = launches["operations"][name]
     out.append(row)
   print(card)
   print(json.dumps({"kernels": out}))
@@ -1330,22 +1424,27 @@ def phase_1024(dev, paths, errs):
 
 
 class HostDeclines(logging.Handler):
-  """Records every decline the engine logs (engine._fallback) while it
-  is entered. require_none fails on any decline but decode_window_device's
-  of a long window, which sends decode_window to the split on the card
-  (the reference's own route, engine.py:700-712)."""
+  """Records every decline the engine logs (engine._fallback), and every
+  analytics route that falls back to its host loop, while it is
+  entered. require_none fails on any decline but decode_window_device's
+  of a long window, where the caller takes the split on the card (the
+  reference's own route, engine.py:700-712)."""
+
+  LOGGERS = (eng.logger, analytics.logger)
 
   def __enter__(self):
     logging.Handler.__init__(self, logging.WARNING)
     self.seen = []
-    eng.logger.addHandler(self)
+    for log in self.LOGGERS:
+      log.addHandler(self)
     return self
 
   def emit(self, record):
     self.seen.append(record.getMessage())
 
   def __exit__(self, *exc):
-    eng.logger.removeHandler(self)
+    for log in self.LOGGERS:
+      log.removeHandler(self)
 
   def require_none(self, path):
     host = [m for m in self.seen if not m.startswith("decode_window_device:")]
@@ -1862,6 +1961,10 @@ def phase_sharded(dev, stream, paths):
              ("pins 512^3", bp512, paths["512"], "pins"),
              ("u64 256^2x128", bu64, paths["u64"], "flat"),
              ("markov-5 256^2x128", bmkv, paths["mkv"], "flat")]
+  # the long-slice volume: its slices, past MAX_DEVICE_CAP, taken whole
+  # (as by the reference's sharded prep)
+  streams.append(("long slices 2048^2x32", read(paths["long"][0]),
+                  paths["long"][1], "flat"))
   runs = [(mt, m, st) for mt, m in meshes.items() for st in streams] + [
     ("3 shards on one card", parallel.make_mesh([dev] * 3),
      ("u32 256^2x128 (128 % 3 != 0)", b256, paths["256"], "flat"))]
@@ -2179,6 +2282,321 @@ def rank_main(spec):
   return 0
 
 
+def start_ops_oracle(paths):
+  """Start phase 18's host oracle in four child processes on the files
+  phases 1-3 wrote: the host-loop VCG (4 and 6) of the flat 512^3,
+  markov-5, u64 and long-slice streams in one, of the pins 512^3 stream
+  in another, the contacts of the pins 512^3 stream in a third, and in
+  the fourth the other contacts and the host functions of phase 18 (d).
+  Writes (d)'s array_equal partner first: a copy of the 256^2 stream
+  with its first slice moved last. Returns (the processes, the paths
+  they write)."""
+  tmp = os.path.dirname(paths["stats"])
+  cells = dict(vcg_cells(paths))
+  vcg = {(tag, c): os.path.join(tmp, f"vcg{c}_{i}.npy")
+         for i, tag in enumerate(cells) for c in (4, 6)}
+  contacts = {tag: os.path.join(tmp, f"contacts_{i}.npz")
+              for i, (tag, _, _) in enumerate(CONTACT_CELLS)}
+  b256 = read(VOL256)
+  _, first, rest = ops.zsplit(b256, 0)
+  rotated = os.path.join(tmp, "rotated256.ckl")
+  with open(rotated, "wb") as f:
+    f.write(ops.zstack([rest, first]))
+  out = {"vcg": vcg, "contacts": contacts,
+         "pairs": [(VOL256, VOL256), (VOL256, VOLMKV), (VOL256, rotated)],
+         "each": os.path.join(tmp, "each.npz"),
+         "mode_pooling": os.path.join(tmp, "pooled.ckl"),
+         "cc": {c: os.path.join(tmp, f"cc{c}.ckl") for c in (6, 26)},
+         "json": [os.path.join(tmp, f"ops{i}.json") for i in range(4)]}
+  # four children of about a minute each: the pins host loops are the
+  # slowest
+  an = {tag: a for tag, a, _ in CONTACT_CELLS}
+  specs = [
+    {"vcg": [[cells[tag], c, vcg[tag, c]] for tag in cells
+             if tag != "pins 512^3" for c in (4, 6)]},
+    {"vcg": [[cells["pins 512^3"], c, vcg["pins 512^3", c]]
+             for c in (4, 6)]},
+    {"contacts": [[cells["pins 512^3"], an["pins 512^3"],
+                   contacts["pins 512^3"]]]},
+    {"contacts": [[cells[tag], an[tag], contacts[tag]]
+                  for tag in an if tag != "pins 512^3"],
+     "each": [VOL256, EACH_LABELS, out["each"]],
+     "array_equal": out["pairs"],
+     "mode_pooling": [VOL256, out["mode_pooling"]],
+     "cc": [[VOL256, c, p] for c, p in out["cc"].items()]}]
+  for spec, js in zip(specs, out["json"]):
+    spec["json"] = js
+  procs = [subprocess.Popen([sys.executable, "-c", ORACLE, json.dumps(spec)],
+                            cwd=ROOT) for spec in specs]
+  return procs, out
+
+
+def vcg_cells(paths):
+  """(tag, stream path) of phase 18 (a)'s streams."""
+  return [("512^3", VOL512), ("pins 512^3", paths["pins512"]),
+          ("markov-5 256^2x128", VOLMKV), ("u64 256^2x128", VOLU64),
+          ("long slices 2048^2x32", paths["long"][0])]
+
+
+# phase 18 (c): (tag, anisotropy, the path whose kernels it launches)
+CONTACT_CELLS = [("512^3", (4, 4, 40), "vcg6"),
+                 ("pins 512^3", (1, 1, 1), "vcg6 pins"),
+                 ("u64 256^2x128", (0.3, 0.7, 1.1), "vcg6")]
+# phase 18 (d): each of the first EACH_LABELS labels of the 256^2 stream
+EACH_LABELS = 8
+
+
+class CrcCount:
+  """Counts the calls of crc32c.crc32c_rows (the CRC gate and the
+  encode's CRCs) while it is entered."""
+
+  def __enter__(self):
+    self.n = 0
+    self._rows = crc32c.crc32c_rows
+
+    def rows(*a, **k):
+      self.n += 1
+      return self._rows(*a, **k)
+
+    crc32c.crc32c_rows = rows
+    return self
+
+  def __exit__(self, *exc):
+    crc32c.crc32c_rows = self._rows
+
+
+def take(total):
+  """This step's launches, added to total; the counts start again at 0."""
+  n = launched_now()
+  for k, v in n.items():
+    total[k] += v
+  ct.reset_launches()
+  return n
+
+
+def require_path(what, n, path, only=False):
+  """n holds every kernel of PATHS[path] (and, with only, no other)."""
+  missing = [k for k in PATHS[path] if not n.get(k)]
+  extra = [k for k in n if k not in PATHS[path]] if only else []
+  if missing or extra:
+    raise AssertionError(f"{what}: launches {n}, missing {missing}, "
+                         f"unexpected {extra}")
+
+
+def contacts_of(npz):
+  z = np.load(npz)
+  return {(int(a), int(b)): float(x) for a, b, x in
+          zip(z["lo"].tolist(), z["hi"].tolist(), z["area"].tolist())}
+
+
+def finish_ops_oracle(procs, out):
+  """Wait for start_ops_oracle's children; returns (the paths they
+  wrote, the seconds of each of their steps, their array_equal
+  results)."""
+  for proc in procs:
+    if proc.wait(timeout=900) != 0:
+      raise AssertionError(f"the operations oracle failed "
+                           f"({proc.returncode})")
+  secs, equal = {}, []
+  for js in out["json"]:
+    with open(js) as f:
+      d = json.load(f)
+    secs.update(d["secs"])
+    equal += d["array_equal"]
+  return out, secs, equal
+
+
+def phase_operations(dev, ops_oracle, paths):
+  """Phase 18: the stream operations and analytics under
+  set_engine('torch') on dev against the oracle children of
+  start_ops_oracle; see the module docstring. Returns the launches of
+  each step's first call, summed."""
+  out, secs, equal = ops_oracle
+  say(18, "operations oracle's seconds: " + ", ".join(
+    f"{k} {v:.3f}" for k, v in secs.items()))
+  streams = {tag: (os.path.basename(p), read(p)) for tag, p in
+             vcg_cells(paths)}
+  total = {name: 0 for name, *_ in KERNELS}
+  pcodec.set_engine("torch", device=dev)
+  try:
+    with HostDeclines() as declines:
+      ct.reset_launches()
+      with CrcCount() as crcs:
+        vcg_lines(streams, out, secs, total)
+        if crcs.n:
+          raise AssertionError(f"the VCG route ran the CRC gate {crcs.n} "
+                               f"times")
+        b512 = streams["512^3"][1]
+        renum = ops.renumber(b512, start=1)[0]
+        _, first, rest = ops.zsplit(b512, 0)
+        for tag, other, want in (("renumbered", renum, True),
+                                 ("first slice moved last",
+                                  ops.zstack([rest, first]), False)):
+          t0 = time.perf_counter()
+          got = ops.structure_equal(b512, other)
+          ms = (time.perf_counter() - t0) * 1e3
+          if got is not want:
+            raise AssertionError(f"structure_equal(512^3, {tag}) is {got}")
+          n = take(total)
+          say(18, f"(b) structure_equal(512^3, {tag}) is {got} as it should "
+                  f"be ({ms:.3f} ms; launches {n})")
+        contact_lines(streams, out, secs, total)
+        if crcs.n:
+          raise AssertionError(f"the contacts route ran the CRC gate "
+                               f"{crcs.n} times")
+      host_function_lines(out, secs, equal, total)
+      edit_lines(b512, paths, total, dev)
+    say(18, declines.require_none("operations"))
+  finally:
+    pcodec.set_engine("auto")
+  say(18, f"operations-path launches (each step's first call) {total}")
+  return total
+
+
+def vcg_lines(streams, out, secs, total):
+  """Phase 18 (a): voxel_connectivity_graph of each stream against the
+  host loop, its launches, steady times and busy share."""
+  for tag, (fname, binary) in streams.items():
+    head = pcodec.header(binary)
+    vox = head.sx * head.sy * head.sz
+    pins = head.label_format == 2
+    for c in (4, 6):
+      t0 = time.perf_counter()
+      got = ops.voxel_connectivity_graph(binary, c)
+      first = (time.perf_counter() - t0) * 1e3
+      n = take(total)
+      want = np.load(out["vcg"][tag, c], mmap_mode="r")
+      if got.dtype != np.uint8 or got.shape != (head.sx, head.sy, head.sz) \
+         or not np.array_equal(got.transpose(2, 1, 0), want):
+        raise AssertionError(f"{tag} vcg{c} differs from the host loop")
+      require_path(f"{tag} vcg{c}", n, "vcg4" if c == 4 else
+                   "vcg6 pins" if pins else "vcg6", only=True)
+      ms = wall_ms(lambda: ops.voxel_connectivity_graph(binary, c), 3)
+      wall, busy, nev = busy_split(
+        lambda: ops.voxel_connectivity_graph(binary, c))
+      ct.reset_launches()
+      mean = sum(ms) / len(ms)
+      name = f"vcg{c} {fname}"
+      say(18, f"(a) {tag} voxel_connectivity_graph({c}) byte-equal to the "
+              f"host loop (oracle {secs.get(name, float('nan')):.3f} s); "
+              f"first call {first:.3f} ms; steady ms "
+              + ", ".join(f"{x:.3f}" for x in ms)
+              + f"; mean {mean:.3f} ms, {vox / mean / 1e3:.1f} MVx/s; one "
+                f"profiled call {wall:.3f} ms of wall, device busy "
+              + (f"{busy:.3f} ms ({100 * busy / wall:.1f}%), host the rest"
+                 if busy is not None else "not measured")
+              + f" ({nev} device events); launches {n}")
+
+
+def contact_lines(streams, out, secs, total):
+  """Phase 18 (c): contacts of each CONTACT_CELLS stream, == the host
+  loop's dict, with its launches and wall times."""
+  for tag, an, path in CONTACT_CELLS:
+    fname, binary = streams[tag]
+    t0 = time.perf_counter()
+    got = ops.contacts(binary, an)
+    first = time.perf_counter() - t0
+    n = take(total)
+    want = contacts_of(out["contacts"][tag])
+    if got != want:
+      raise AssertionError(f"{tag} contacts{an} differ from the host loop "
+                           f"({len(got)} pairs against {len(want)})")
+    require_path(f"{tag} contacts", n, path, only=True)
+    ms = wall_ms(lambda: ops.contacts(binary, an), 2)
+    ct.reset_launches()
+    name = f"contacts {fname}"
+    say(18, f"(c) {tag} contacts{an}: {len(got)} pairs, == the host loop's "
+            f"dict (oracle {secs.get(name, float('nan')):.3f} s); wall "
+            f"first {first:.3f} s, then " + ", ".join(
+              f"{x / 1e3:.3f}" for x in ms) + f" s; launches {n}")
+
+
+def host_function_lines(out, secs, equal, total):
+  """Phase 18 (d): each, array_equal, mode_pooling_2x2x1 and
+  connected_components of the 256^2 stream under the torch engine,
+  against the oracle's."""
+  b256 = read(VOL256)
+  t0 = time.perf_counter()
+  labels = [int(u) for u in pcodec.labels(b256)[:EACH_LABELS]]
+  imgs = dict(ct.each(b256, labels=labels))
+  t_each = time.perf_counter() - t0
+  want = np.load(out["each"])
+  if sorted(map(str, imgs)) != sorted(want.files):
+    raise AssertionError("each: other labels than the oracle's")
+  for k, img in imgs.items():
+    w = want[str(k)]
+    if img.dtype != w.dtype or not np.array_equal(img, w):
+      raise AssertionError(f"each: the image of label {k} differs")
+  n = take(total)
+  require_path("each", n, "flat")
+  say(18, f"(d) each of {len(imgs)} labels, cropped, equal to the oracle's "
+          f"images ({t_each:.3f} s; oracle {secs['each']:.3f} s); "
+          f"launches {n}")
+  got = []
+  t0 = time.perf_counter()
+  for a, b in out["pairs"]:
+    got.append(ops.array_equal(read(a), read(b)))
+  t_eq = time.perf_counter() - t0
+  if got != equal or got != [True, True, False]:
+    raise AssertionError(f"array_equal {got}, oracle {equal}")
+  n = take(total)
+  t_or = sum(v for k, v in secs.items() if k.startswith("array_equal"))
+  say(18, f"(d) array_equal of the 256^2 stream with itself, its markov-5 "
+          f"stream and a copy with its first slice last: {got}, as the "
+          f"oracle's ({t_eq:.3f} s; oracle {t_or:.3f} s); launches {n}")
+  steps = [("mode_pooling_2x2x1", lambda: ops.mode_pooling_2x2x1(b256),
+            out["mode_pooling"])]
+  steps += [(f"connected_components {c}",
+             lambda c=c: ops.connected_components(b256, c), p)
+            for c, p in out["cc"].items()]
+  for step, fn, path in steps:
+    t0 = time.perf_counter()
+    got = fn()
+    t = time.perf_counter() - t0
+    require_bytes(step, got, read(path))
+    n = take(total)
+    require_path(step, n, "encode")
+    say(18, f"(d) {step} of the 256^2 stream: the oracle's {len(got)} bytes "
+            f"({t:.3f} s; oracle {secs[step]:.3f} s); launches {n}")
+
+
+def edit_lines(b512, paths, total, dev):
+  """Phase 18 (e): remap, renumber, mask and zsplit of 512^3 decoded on
+  the card with the CRC gate, against the oracle volume with the same
+  edit in numpy."""
+  want = np.load(paths["512"], mmap_mode="r")
+  uniq = pcodec.labels(b512)
+
+  def lookup(vals, dtype):
+    return np.asarray(vals, dtype)[np.searchsorted(uniq, want)]
+
+  renum, mapping = ops.renumber(b512, start=1)
+  masked = uniq[::200]
+  before, mid, after = ops.zsplit(b512, 200)
+  edits = [
+    ("remap (labels reversed)", ops.remap(
+      b512, dict(zip(uniq.tolist(), uniq[::-1].tolist()))),
+     lambda: lookup(uniq[::-1], uniq.dtype)),
+    ("renumber from 1", renum, lambda: lookup(
+      [mapping[int(u)] for u in uniq], pcodec.header(renum).dtype)),
+    (f"mask of {len(masked)} labels", ops.mask(b512, masked.tolist()),
+     lambda: np.where(np.isin(want, masked), 0, want).astype(uniq.dtype)),
+    ("zsplit(200) before", before, lambda: want[:200]),
+    ("zsplit(200) slice", mid, lambda: want[200:201]),
+    ("zsplit(200) after", after, lambda: want[201:])]
+  for tag, binary, expect in edits:
+    head = pcodec.header(binary)
+    t0 = time.perf_counter()
+    got = ct.decode_window(binary, 0, head.sz, check_crcs=True, device=dev)
+    t = time.perf_counter() - t0
+    require_volume(f"edited 512^3: {tag}", got, expect(), head)
+    n = take(total)
+    require_path(tag, n, "flat")
+    say(18, f"(e) {tag}: decode_window(0, {head.sz}, check_crcs=True) on "
+            f"the card equal to the oracle volume edited in numpy "
+            f"({head.dtype}; {t:.3f} s); launches {n}")
+
+
 def long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys, dev):
   """Host and device times of each stage of the long-slice decode."""
   sx, sy, sz = head.sx, head.sy, head.sz
@@ -2421,6 +2839,34 @@ def pins_stage_times(s):
   }
 
 
+def union_us(spans):
+  """The length of the union of sorted (start, end) intervals."""
+  busy, (lo, hi) = 0, spans[0]
+  for a, b in spans[1:]:
+    if a > hi:
+      busy, lo = busy + hi - lo, a
+    hi = max(hi, b)
+  return busy + hi - lo
+
+
+def busy_split(fn):
+  """(wall ms, device-busy ms, device events) of one fn() call: the
+  union of the device-activity intervals torch.profiler records, the
+  rest of the wall being host work the card waits on."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+  spans = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events() if e.device_type == DeviceType.CUDA)
+  return wall_us / 1e3, (union_us(spans) / 1e3 if spans else None), \
+    len(spans)
+
+
 def busy_share(s):
   """The union of device-activity intervals that torch.profiler
   records over three full decodes, against their host-clock time."""
@@ -2438,12 +2884,7 @@ def busy_share(s):
                  for e in prof.events() if e.device_type == DeviceType.CUDA)
   if not spans:
     return "512^3 device busy share: not measured (no device events)"
-  busy, (lo, hi) = 0, spans[0]
-  for a, b in spans[1:]:
-    if a > hi:
-      busy, lo = busy + hi - lo, a
-    hi = max(hi, b)
-  busy += hi - lo
+  busy = union_us(spans)
   return (f"512^3 device busy share over {reps} decodes: "
           f"{100 * busy / wall_us:.1f}% ({busy / 1e3:.3f} ms of device "
           f"activity in {wall_us / 1e3:.3f} ms, {len(spans)} device events)")

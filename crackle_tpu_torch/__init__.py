@@ -2,10 +2,10 @@
 
 A port of crackle_tpu's device-resident decode and device encode to
 PyTorch, with hand-written CUDA kernels for Hopper (sm_90a) in csrc/.
-It carries its
-own copy of the reference's host layer (headers, lib, codec, ops,
-models, native: the numpy and native host engine) and imports nothing
-of crackle_tpu and nothing of JAX.
+It carries its own copy of the reference's host layer (headers, lib,
+codec, ops, models, native: the numpy and native host engine) and its
+stream operations and analytics, and imports nothing of crackle_tpu and
+nothing of JAX.
 
   stream = upload_stream(binary, torch.device("cuda"))  # flat or pins
   labels, cc, N = stream.decode_window(0, stream.head.sz, check_crcs=True)
@@ -18,6 +18,17 @@ of crackle_tpu and nothing of JAX.
   arr = CrackleDeviceArray(binary, "cuda")
   cutout = arr[100:300, 50:450, 200:264]  # a uint32/uint64 CUDA tensor
   counts = arr.voxel_counts()             # stats kernel on the card
+
+  binary = remap(binary, {1: 2})          # edits of the stream's bytes
+  vcg = voxel_connectivity_graph(binary)  # replay kernels on the card
+  areas = contacts(binary, (4, 4, 40))    # labels decoded on the card
+
+The stream operations (remap, mask, zsplit, full, the scalar operators,
+...) are host byte surgery, as in the reference; what decodes
+(voxel_connectivity_graph, contacts, structure_equal, array_equal, each,
+mode_pooling_2x2x1, connected_components, recompress) goes through the
+codec's engine, so set_engine('torch') (or 'auto' with a card) sends it
+to the card, and set_engine('torch', device="cpu") to the plain versions.
 
 On a CUDA tensor each kernel wrapper launches its kernel (or raises);
 on a CPU tensor it runs the kernel's plain PyTorch version.
@@ -34,12 +45,30 @@ from .kernels.decode import (
 )
 from .kernels.engine import (
   CrackFormat, DeviceStream, FormatError, decode_window, decode_window_ccl,
-  decode_window_ccl_device, decode_window_device, params_from_jax,
+  decode_window_ccl_device, decode_window_device,
+  decode_window_labels_device, decode_window_vcg_device, params_from_jax,
   prepare_slice_inputs, prepare_split_inputs, upload_stream,
 )
 from .kernels.replay import paint_vcg, replay_keys, replay_positions
 from .kernels.stats import slice_stats
-from .ops.analytics import bounding_boxes, centroids, voxel_counts
+from .ops.analytics import (
+  bounding_boxes, cache_meta, centroids, each, point_cloud, voxel_counts,
+)
+from .operations import (
+  astype, ascontiguousarray, asfortranarray,
+  remap, refit, renumber,
+  min, max,
+  zstack, zsplit, zshatter,
+  full, zeros, ones,
+  add_scalar, subtract_scalar,
+  multiply_scalar, floordiv_scalar,
+  recompress, connected_components,
+  mask, mask_except,
+  voxel_connectivity_graph,
+  contacts,
+  array_equal, structure_equal,
+  mode_pooling_2x2x1,
+)
 
 __all__ = [
   "CrackleDeviceArray", "get_engine", "set_engine", "LAUNCHES",
@@ -47,7 +76,16 @@ __all__ = [
   "roots_from_tgt", "decode_slices_full", "decode_slices_full_pins",
   "decode_slices_full_plant", "decode_slices_to_ccl", "CrackFormat",
   "DeviceStream", "FormatError", "decode_window", "decode_window_ccl",
-  "decode_window_ccl_device", "decode_window_device", "params_from_jax",
-  "prepare_slice_inputs", "prepare_split_inputs", "upload_stream", "paint_vcg", "replay_keys", "replay_positions",
-  "slice_stats", "bounding_boxes", "centroids", "voxel_counts",
+  "decode_window_ccl_device", "decode_window_device",
+  "decode_window_labels_device", "decode_window_vcg_device",
+  "params_from_jax", "prepare_slice_inputs", "prepare_split_inputs",
+  "upload_stream", "paint_vcg", "replay_keys", "replay_positions",
+  "slice_stats", "bounding_boxes", "cache_meta", "centroids", "each",
+  "point_cloud", "voxel_counts",
+  "astype", "ascontiguousarray", "asfortranarray", "remap", "refit",
+  "renumber", "min", "max", "zstack", "zsplit", "zshatter", "full",
+  "zeros", "ones", "add_scalar", "subtract_scalar", "multiply_scalar",
+  "floordiv_scalar", "recompress", "connected_components", "mask",
+  "mask_except", "voxel_connectivity_graph", "contacts", "array_equal",
+  "structure_equal", "mode_pooling_2x2x1",
 ]

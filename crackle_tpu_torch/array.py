@@ -91,16 +91,22 @@ class CrackleDeviceArray:
   no host round trip. Flat and condensed-pins streams are taken, markov
   ones too (their rank decode is a host cost paid once, at upload).
   Raises ValueError where upload_stream declines the stream; label and
-  metadata queries go to the host codec on the original bytes."""
+  metadata queries go to the host codec on the original bytes.
+  parallel is the reference's keyword (array.py:518), stored and unused:
+  device comes second, as the port's callers pass it."""
 
-  def __init__(self, binary: bytes, device="cuda"):
+  def __init__(self, binary: bytes, device="cuda", parallel: int = 0):
     self.binary = binary
+    self.parallel = parallel
     self.stream = _engine.upload_stream(binary, device)
     if self.stream is None:
       raise ValueError(
         "stream is not eligible for device serving (the "
         "crackle_tpu_torch.engine logger records the reason); use "
-        "crackle_tpu_torch.codec.decompress for the host path")
+        "crackle_tpu_torch.codec.decompress or decompress_range for the "
+        "volume, or the stream functions that need no upload "
+        "(crackle_tpu_torch.voxel_counts, bounding_boxes, "
+        "voxel_connectivity_graph, contacts, remap, mask, zsplit)")
 
   @property
   def device(self) -> torch.device:

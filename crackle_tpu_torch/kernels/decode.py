@@ -89,13 +89,12 @@ def decode_pieces_to_ccl(packed, nbytes, nodes, n_chains, piece_z, B: int,
   return cc, N
 
 
-def decode_slices_full_plant(packed, nbytes, nodes, n_chains, T,
-                             sx: int, sy: int, permissible: bool):
-  """Decode with the in-kernel label paint. T: (B, K, cap_n) int32
-  per-slice painted-value tables; K=1 paints uint32 labels, K=2 paints
-  uint64 labels as (lo32, hi32) planes. Returns (labels (B, sy*sx)
-  uint32 or uint64, cc int32, N int32), all on the inputs' device."""
-  vcg = _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx, sy, permissible)
+def labels_from_vcg(vcg, T):
+  """The CCL and in-kernel label paint of a window's VCG (B, sy, sx)
+  int32. T: (B, K, cap_n) int32 per-slice painted-value tables; K=1
+  paints uint32 labels, K=2 paints uint64 labels as (lo32, hi32)
+  planes. Returns (labels (B, sy*sx) uint32 or uint64, cc int32, N
+  int32), all on vcg's device."""
   cc, N, painted = _ccl.ccl_paint(vcg, T)
   if T.shape[1] == 2:
     lo = painted[:, 0].to(torch.int64) & 0xFFFFFFFF
@@ -104,6 +103,15 @@ def decode_slices_full_plant(packed, nbytes, nodes, n_chains, T,
   else:
     labels = painted[:, 0].contiguous().view(torch.uint32)
   return labels, cc, N
+
+
+def decode_slices_full_plant(packed, nbytes, nodes, n_chains, T,
+                             sx: int, sy: int, permissible: bool):
+  """Decode with the in-kernel label paint: the replay, then
+  labels_from_vcg. Returns (labels (B, sy*sx) uint32 or uint64, cc
+  int32, N int32), all on the inputs' device."""
+  return labels_from_vcg(
+    _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx, sy, permissible), T)
 
 
 def pins_label_table(cc, pin_locs, pin_labs, single_ids, single_labs,
@@ -154,7 +162,16 @@ def decode_slices_full_pins(packed, nbytes, nodes, n_chains, pin_locs,
 
   Returns (labels (B, sy*sx) uint32, cc int32, N int32), all on the
   inputs' device."""
-  vcg = _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx, sy, permissible)
+  return pins_labels_from_vcg(
+    _vcg_for_ccl(packed, nbytes, nodes, n_chains, sx, sy, permissible),
+    pin_locs, pin_labs, single_ids, single_labs, bg32, cap_n)
+
+
+def pins_labels_from_vcg(vcg, pin_locs, pin_labs, single_ids, single_labs,
+                         bg32: int, cap_n: int):
+  """The CCL and label paint of decode_slices_full_pins on a window's
+  VCG (B, sy, sx) int32. Returns (labels (B, sy*sx) uint32, cc int32, N
+  int32), all on vcg's device."""
   plant_ok = cap_n <= _ccl.PAINT_CAP_N
   if plant_ok:
     cap2 = _ccl._pow2_cap(cap_n)

@@ -340,28 +340,46 @@ def _device(device) -> torch.device:
   return dev
 
 
-def _decode_ccl_split(binary: bytes, z_start: int, z_end: int, dev):
-  """Decode a window whose slices exceed MAX_DEVICE_CAP through
-  chain-aligned pieces (engine.py:256-274): the pieces replay on `dev`
-  as rows of their own, each slice's VCG is painted from the edge ids
-  of all its pieces, then the CCL runs on the B slices. Returns (cc,
-  N, head), or None with the reason logged."""
+def _window_vcg(binary: bytes, inputs, z_start: int, z_end: int, dev,
+                fn: str):
+  """The per-slice VCG (B, sy, sx) int32 of the window whose
+  prepare_slice_inputs are `inputs`, on `dev`: through the three replay
+  kernels, or, where a slice passes MAX_DEVICE_CAP codepoints, through
+  chain-aligned pieces (engine.py:256-274) replayed as rows of their own,
+  each slice painted from the edge ids of all its pieces. Returns None,
+  with the reason logged under fn, for a markov stream that would need
+  the split and where one chain or piece passes the limits."""
+  head = inputs["head"]
+  permissible = head.crack_format == CrackFormat.PERMISSIBLE
+  if _device_cap_ok(inputs):
+    t = params_from_jax(inputs, device=dev)
+    return _dec._vcg_for_ccl(t["packed"], t["nbytes"], t["nodes"],
+                             t["n_chains"], head.sx, head.sy, permissible)
   res = prepare_split_inputs(binary, z_start, z_end)
   if res is None:
-    return _fallback("decode_window_ccl_device",
-                     "a markov stream or a single chain exceeds the piece "
-                     "limit")
-  inputs, piece_z = res
-  if not _device_cap_ok(inputs):
-    return _fallback("decode_window_ccl_device",
-                     "a piece exceeds MAX_DEVICE_CAP")
-  head = inputs["head"]
-  t = params_from_jax(inputs, device=dev, piece_z=piece_z)
-  cc, N = _dec.decode_pieces_to_ccl(
+    return _fallback(fn, "a markov stream or a single chain exceeds the "
+                         "piece limit")
+  pieces, piece_z = res
+  if not _device_cap_ok(pieces):
+    return _fallback(fn, "a piece exceeds MAX_DEVICE_CAP")
+  t = params_from_jax(pieces, device=dev, piece_z=piece_z)
+  return _dec.decode_pieces_to_vcg(
     t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["piece_z"],
-    z_end - z_start, sx=head.sx, sy=head.sy,
-    permissible=head.crack_format == CrackFormat.PERMISSIBLE)
-  return cc, N, head
+    z_end - z_start, sx=head.sx, sy=head.sy, permissible=permissible)
+
+
+def decode_window_vcg_device(binary: bytes, z_start: int, z_end: int,
+                             device="cuda"):
+  """Decode a z window to its per-slice 4-bit VCG (B, sy, sx) int32 on
+  `device`, the crack-format complement applied (bits -y +y -x +x, as
+  codec.decode_slice_vcg gives them): the replay kernels only, with no
+  CCL and no CRC gate. Slices longer than MAX_DEVICE_CAP codepoints
+  split into chain-aligned pieces. Returns None (with the reason logged)
+  where the split declines."""
+  dev = _device(device)
+  _check_window(_codec.header(binary), z_start, z_end)
+  return _window_vcg(binary, prepare_slice_inputs(binary, z_start, z_end),
+                     z_start, z_end, dev, "decode_window_vcg_device")
 
 
 def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int,
@@ -374,14 +392,12 @@ def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int,
   dev = _device(device)
   _check_window(_codec.header(binary), z_start, z_end)
   inputs = prepare_slice_inputs(binary, z_start, z_end)
-  head = inputs["head"]
-  if not _device_cap_ok(inputs):
-    return _decode_ccl_split(binary, z_start, z_end, dev)
-  t = params_from_jax(inputs, device=dev)
-  cc, N = _dec.decode_slices_to_ccl(
-    t["packed"], t["nbytes"], t["nodes"], t["n_chains"], sx=head.sx,
-    sy=head.sy, permissible=head.crack_format == CrackFormat.PERMISSIBLE)
-  return cc, N, head
+  vcg = _window_vcg(binary, inputs, z_start, z_end, dev,
+                    "decode_window_ccl_device")
+  if vcg is None:
+    return None
+  cc, N, _ = _ccl.ccl_paint(vcg)
+  return cc, N, inputs["head"]
 
 
 def crc_gate(cc, stored, z_start: int):
@@ -554,6 +570,56 @@ def _upload_pins_stream(head, binary: bytes, dev):
     crcs=_stored_crcs(head, binary, dev), pins=t["pins"])
 
 
+def _window_labels(binary: bytes, z_start: int, z_end: int, dev, fn: str,
+                   split_ok: bool):
+  """Decode a z window to labels on `dev`: (labels (B, sy*sx) uint32 or
+  uint64, cc (B, sy*sx) int32, N (B,) int32, vcg (B, sy, sx) int32, head),
+  or None with the reason logged under fn.
+
+  Pins windows take pins_labels_from_vcg; flat windows the in-kernel
+  paint (labels_from_vcg, K = 1 or 2) up to PAINT_CAP_N components a
+  slice and the gather paint (ccl_paint, paint_labels_u32) past it or
+  where the slices split into pieces (split_ok). Declined: pins labels
+  stored wider than 32 bits, pins or (without split_ok) flat slices past
+  MAX_DEVICE_CAP, u64 labels past PAINT_CAP_N or split, a label format
+  other than flat or pins, and what _window_vcg declines."""
+  head = _codec.header(binary)
+  pins = head.label_format == LabelFormat.PINS_VARIABLE_WIDTH
+  if not pins and head.label_format != LabelFormat.FLAT:
+    return _fallback(fn, f"unsupported label format {head.label_format}")
+  inputs = prepare_slice_inputs(binary, z_start, z_end)
+  split = not _device_cap_ok(inputs)
+  if split and (pins or not split_ok):
+    return _fallback(fn, "stream exceeds MAX_DEVICE_CAP")
+  if pins:
+    tables = _pins_device_tables(head, binary, z_start, z_end)
+    if tables is None:
+      return _fallback(fn, "pins tables unavailable (stored width > 4)")
+  else:
+    uniq, cum, keys = _flat_label_tables(head, binary)
+    n_per_slice = cum[z_start + 1:z_end + 1] - cum[z_start:z_end]
+    max_n = int(n_per_slice.max()) if len(n_per_slice) else 1
+    cap_n = _next_pow2(max(max_n, 8))
+    plant = not split and cap_n <= _ccl.PAINT_CAP_N
+    if not plant and uniq.dtype.itemsize > 4:
+      return _fallback(fn, "u64 labels without the plant kernel")
+  vcg = _window_vcg(binary, inputs, z_start, z_end, dev, fn)
+  if vcg is None:
+    return None
+  if pins:
+    labels, cc, N = _dec.pins_labels_from_vcg(
+      vcg, *(_i32(a, dev) for a in tables[:4]), int(tables[4]),
+      int(tables[5]))
+  elif plant:
+    labels, cc, N = _dec.labels_from_vcg(
+      vcg, _i32(plant_table(uniq, cum, keys, z_start, z_end, cap_n), dev))
+  else:
+    cc, N, _ = _ccl.ccl_paint(vcg)
+    labels = _dec.paint_labels_u32(
+      cc, *_gather_tables(uniq, cum, keys, z_start, z_end, dev))
+  return labels, cc, N, vcg, head
+
+
 def decode_window_device(binary: bytes, z_start: int, z_end: int,
                          device="cuda"):
   """Decode a z window on `device` (engine.py:421-497). Returns (labels
@@ -563,56 +629,39 @@ def decode_window_device(binary: bytes, z_start: int, z_end: int,
   a label format other than flat or pins, and u64 labels with more than
   PAINT_CAP_N components in a slice.
 
-  Pins windows take decode_slices_full_pins; flat windows the in-kernel
-  paint (decode_slices_full_plant, K = 1 or 2) up to PAINT_CAP_N
-  components a slice and the gather paint (decode_slices_full) past it."""
+  Pins windows take decode_slices_full_pins' route; flat windows the
+  in-kernel paint (decode_slices_full_plant's, K = 1 or 2) up to
+  PAINT_CAP_N components a slice and the gather paint (decode_slices_full's)
+  past it."""
   dev = _device(device)
-  head = _codec.header(binary)
-  _check_window(head, z_start, z_end)
-  permissible = head.crack_format == CrackFormat.PERMISSIBLE
-  if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
-    tables = _pins_device_tables(head, binary, z_start, z_end)
-    if tables is None:
-      return _fallback("decode_window_device",
-                       "pins tables unavailable (stored width > 4)")
-    inputs = prepare_slice_inputs(binary, z_start, z_end)
-    if not _device_cap_ok(inputs):
-      return _fallback("decode_window_device",
-                       "stream exceeds MAX_DEVICE_CAP")
-    t = params_from_jax(inputs, device=dev, pins=tables)
-    pl_, pb_, si_, sl_, bg32, cap_n = t["pins"]
-    labels, cc, N = _dec.decode_slices_full_pins(
-      t["packed"], t["nbytes"], t["nodes"], t["n_chains"], pl_, pb_, si_,
-      sl_, bg32, sx=head.sx, sy=head.sy, permissible=permissible,
-      cap_n=cap_n)
-    return labels, cc, N, head
-  if head.label_format != LabelFormat.FLAT:
-    return _fallback("decode_window_device",
-                     f"unsupported label format {head.label_format}")
-  inputs = prepare_slice_inputs(binary, z_start, z_end)
-  if not _device_cap_ok(inputs):
-    return _fallback("decode_window_device",
-                     "stream exceeds MAX_DEVICE_CAP")
-  uniq, cum, keys = _flat_label_tables(head, binary)
-  n_per_slice = cum[z_start + 1:z_end + 1] - cum[z_start:z_end]
-  max_n = int(n_per_slice.max()) if len(n_per_slice) else 1
-  cap_n = _next_pow2(max(max_n, 8))
-  if cap_n <= _ccl.PAINT_CAP_N:
-    T = plant_table(uniq, cum, keys, z_start, z_end, cap_n)
-    t = params_from_jax(inputs, T, device=dev)
-    labels, cc, N = _dec.decode_slices_full_plant(
-      t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["T"],
-      sx=head.sx, sy=head.sy, permissible=permissible)
-    return labels, cc, N, head
-  if uniq.dtype.itemsize > 4:
-    return _fallback("decode_window_device",
-                     "u64 labels without the plant kernel")
-  t = params_from_jax(inputs, device=dev)
-  labels, cc, N = _dec.decode_slices_full(
-    t["packed"], t["nbytes"], t["nodes"], t["n_chains"],
-    *_gather_tables(uniq, cum, keys, z_start, z_end, dev), sx=head.sx,
-    sy=head.sy, permissible=permissible)
+  _check_window(_codec.header(binary), z_start, z_end)
+  res = _window_labels(binary, z_start, z_end, dev, "decode_window_device",
+                       split_ok=False)
+  if res is None:
+    return None
+  labels, cc, N, _vcg, head = res
   return labels, cc, N, head
+
+
+def decode_window_labels_device(binary: bytes, z_start: int, z_end: int,
+                                device="cuda"):
+  """Decode a z window to labels that stay on `device`: what
+  decode_window decodes before its CRC gate and its copy to host memory.
+  Returns (labels (B, sy*sx) uint32 or uint64, cc (B, sy*sx) int32, vcg
+  (B, sy, sx) int32), the VCG the labels were decoded from, or None (with
+  the reason logged) where decode_window declines with label=None: pins
+  or markov slices past MAX_DEVICE_CAP, u64 labels past PAINT_CAP_N or
+  split, a single chain past the piece limit, pins labels stored wider
+  than 32 bits. Long flat slices split into pieces and take the gather
+  paint."""
+  dev = _device(device)
+  _check_window(_codec.header(binary), z_start, z_end)
+  res = _window_labels(binary, z_start, z_end, dev,
+                       "decode_window_labels_device", split_ok=True)
+  if res is None:
+    return None
+  labels, cc, _N, vcg, _head = res
+  return labels, cc, vcg
 
 
 def _gather_tables(uniq, cum, keys, z_start: int, z_end: int, dev):
@@ -647,57 +696,41 @@ def decode_window(binary: bytes, z_start: int, z_end: int,
   numpy (sx, sy, z_end - z_start) volume in the header's memory order
   and dtype, or with label= the boolean mask of that label, or None
   (with the reason logged) where the stream needs the host decoder:
-  a label= query of a pins stream, pins or u64 flat windows that
-  decode_window_device declines, a markov stream that would need a
-  split, and a single chain longer than the piece limit.
+  a label= query of a pins stream, and the windows that
+  decode_window_labels_device declines.
 
-  Flat windows take decode_window_device; a label= query, or a window
-  it declines (slices past MAX_DEVICE_CAP, split into pieces), takes the
-  CCL images of decode_window_ccl_device and the gather paint.
+  label=None takes decode_window_labels_device; a label= query of a flat
+  stream the CCL images of decode_window_ccl_device and paint_keys.
   check_crcs=True checks each slice's CRC32C on the device."""
   dev = _device(device)
   head = _codec.header(binary)
   _check_window(head, z_start, z_end)
   B = z_end - z_start
-  if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
-    if label is not None:
-      return _fallback("decode_window",
-                       "a label= query of a pins stream stays on the host")
-    res = decode_window_device(binary, z_start, z_end, dev)
+  if label is None:
+    res = decode_window_labels_device(binary, z_start, z_end, dev)
     if res is None:
-      return _fallback("decode_window", "decode_window_device declined")
-    labels, cc, _, _ = res
-    if check_crcs:
-      _check_window_crcs(binary, head, cc, z_start)
-    return _host_volume(labels, head, B).astype(head.dtype, copy=False)
-  if head.label_format != LabelFormat.FLAT:
+      return _fallback("decode_window",
+                       "decode_window_labels_device declined")
+    labels, cc, _ = res
+  elif head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
+    return _fallback("decode_window",
+                     "a label= query of a pins stream stays on the host")
+  elif head.label_format != LabelFormat.FLAT:
     return _fallback("decode_window",
                      f"unsupported label format {head.label_format}")
-
-  uniq, cum, keys = _flat_label_tables(head, binary)
-  res = decode_window_device(binary, z_start, z_end, dev) \
-    if label is None else None
-  if res is not None:
-    labels, cc, _, _ = res
   else:
-    if label is None and uniq.dtype.itemsize > 4:
-      return _fallback("decode_window",
-                       "u64 labels without the plant kernel: the host "
-                       "paint is faster than a device gather")
     res = decode_window_ccl_device(binary, z_start, z_end, dev)
     if res is None:
       return _fallback("decode_window", "decode_window_ccl_device declined")
     cc, _, _ = res
-    offsets, keys_t, uniq32 = _gather_tables(uniq, cum, keys, z_start,
-                                             z_end, dev)
-    if label is None:
-      labels = _dec.paint_labels_u32(cc, offsets, keys_t, uniq32)
+    uniq, cum, keys = _flat_label_tables(head, binary)
+    pos = int(np.searchsorted(uniq, label))
+    if pos < len(uniq) and uniq[pos] == label:
+      offsets, keys_t, _ = _gather_tables(uniq, cum, keys, z_start, z_end,
+                                          dev)
+      labels = _dec.paint_keys(cc, offsets, keys_t) == pos
     else:
-      pos = int(np.searchsorted(uniq, label))
-      if pos < len(uniq) and uniq[pos] == label:
-        labels = _dec.paint_keys(cc, offsets, keys_t) == pos
-      else:
-        labels = torch.zeros_like(cc, dtype=torch.bool)
+      labels = torch.zeros_like(cc, dtype=torch.bool)
   if check_crcs:
     _check_window_crcs(binary, head, cc, z_start)
   out = _host_volume(labels, head, B)

@@ -47,12 +47,13 @@ def assemble_shards(shards: Sequence[bytes]) -> bytes:
   return _ops.zstack(list(shards))
 
 
-def decompress_shard(binary: bytes, num_hosts: int, host_id: int
-                     ) -> Tuple[np.ndarray, Tuple[int, int]]:
+def decompress_shard(binary: bytes, num_hosts: int, host_id: int,
+                     mesh=None) -> Tuple[np.ndarray, Tuple[int, int]]:
   """Decode this host's z-window of a full-volume stream with
   codec.decompress_range (on the card under set_engine('torch')). Every
   host parses the (small) header, z index and labels and reads only its
-  own crack bytes."""
+  own crack bytes. mesh is taken and unused, as in the reference
+  (crackle_tpu/parallel/multihost.py:54-64)."""
   head = _codec.header(binary)
   z0, z1 = host_z_window(head.sz, num_hosts, host_id)
   if z0 >= z1:

@@ -13,10 +13,12 @@ import torch
 import crackle_tpu as crackle
 from crackle_tpu.headers import CrackFormat
 import crackle_tpu_torch as ct
+from crackle_tpu_torch import operations as tops
 from crackle_tpu_torch import parallel as tpar
 from crackle_tpu_torch.kernels import ccl, replay, stats
 from crackle_tpu_torch.kernels import encode as tenc
 from crackle_tpu_torch.kernels import engine as teng
+from crackle_tpu_torch.ops import analytics as tana
 
 from test_jax_decode import CASES, random_volume
 from test_jax_encode import DEVICE_ENCODE_CASES
@@ -751,6 +753,18 @@ def test_sharded_decode_on_card(dev, numpy_engine, shards, name):
     k: shards * v for k, v in per_shard.items()}
 
 
+@pytest.mark.parametrize("shards", [1, 2])
+def test_sharded_decode_of_whole_long_slices_on_card(dev, numpy_engine,
+                                                     shards):
+  """2048^2 slices past MAX_DEVICE_CAP, which the sharded decode takes
+  whole (as the reference's does): equal to the host codec."""
+  vol = nuclei_volume(2048, 2048, 2)
+  binary = numpy_engine.compress(vol)
+  assert not teng._device_cap_ok(teng.prepare_slice_inputs(binary, 0, 2))
+  got = tpar.decompress_sharded(binary, tpar.make_mesh([dev] * shards))
+  np.testing.assert_array_equal(got, vol)
+
+
 @pytest.mark.parametrize("shards", [1, 3])
 def test_sharded_counts_and_step_on_card(dev, shards):
   vol, binary, head, inputs, keys, offs, (rcc, rcounts, rz) = \
@@ -811,3 +825,86 @@ def test_one_rank_nccl_group_on_card(dev):
 
 def test_two_process_gloo_run_on_card(dev):
   run_two_ranks(str(dev))
+
+
+def snake_volume(sx, sy, sz):
+  """Label 1 a serpentine through every other row, joined at the ends
+  in turn (one component a slice), label 2 between its rows; each slice
+  shifted by its z."""
+  a = np.full((sy, sx), 2, np.uint32)
+  a[::2] = 1
+  a[1::4, -1] = 1
+  a[3::4, 0] = 1
+  vol = np.stack([np.roll(a, z, 1) for z in range(sz)], axis=2)
+  return np.asfortranarray(vol.transpose(1, 0, 2))
+
+
+def _host_and_card(codec, dev, fn):
+  """fn() under the host engine and under set_engine('torch') on dev."""
+  want = fn()
+  codec.set_engine("torch", device=dev)
+  try:
+    got = fn()
+  finally:
+    codec.set_engine("numpy")
+  return got, want
+
+
+@pytest.mark.parametrize("name", ["snake", "checkerboard", "permissible",
+                                  "nuclei split"])
+def test_vcg_window_on_card(dev, monkeypatch, numpy_engine, name):
+  """decode_window_vcg_device on the card equals the host VCG of each
+  slice, and voxel_connectivity_graph (4 and 6) under
+  set_engine('torch') the host loop, with no window declined."""
+  codec = numpy_engine
+  if name == "snake":
+    vol = snake_volume(300, 200, 4)
+  elif name == "checkerboard":
+    vol = checkerboard((96, 80, 3))
+  elif name == "permissible":
+    vol = random_volume((128, 96, 4), 3, 2, 0)
+  else:
+    monkeypatch.setattr(teng, "MAX_DEVICE_CAP", 4096)
+    vol = nuclei_volume(256, 256, 5)
+  binary = codec.compress(vol)
+  assert (codec.header(binary).crack_format == CrackFormat.PERMISSIBLE) \
+    == (name in ("permissible", "checkerboard"))
+  sz = vol.shape[2]
+  ct.reset_launches()
+  vcg = ct.decode_window_vcg_device(binary, 0, sz, dev)
+  torch.cuda.synchronize()
+  assert ct.LAUNCHES["paint_vcg"] == 1 and ct.LAUNCHES["ccl_paint"] == 0
+  for z in range(sz):
+    np.testing.assert_array_equal(vcg[z].to(torch.uint8).cpu().numpy()
+                                  .ravel(), codec.decode_slice_vcg(binary, z))
+  for c in (4, 6):
+    got, want = _host_and_card(
+      codec, dev, lambda: tops.voxel_connectivity_graph(binary, c))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_vcg_and_contacts_z_seam_on_card(dev, monkeypatch, numpy_engine):
+  """Windows of 3 slices over 8: the 6-connected z bits and the z
+  contacts across each window seam equal the host loop's."""
+  monkeypatch.setattr(tana, "_DEVICE_WINDOW", 3)
+  vol = random_volume((64, 48, 8), 6, 5, 6)
+  binary = numpy_engine.compress(vol)
+  got, want = _host_and_card(
+    numpy_engine, dev, lambda: tops.voxel_connectivity_graph(binary, 6))
+  np.testing.assert_array_equal(got, want)
+  got, want = _host_and_card(
+    numpy_engine, dev, lambda: tops.contacts(binary, (4, 4, 40)))
+  assert got == want
+
+
+@pytest.mark.parametrize("top", [2 ** 63 - 3, 2 ** 64 - 9])
+def test_contacts_of_u64_labels_on_card(dev, numpy_engine, top):
+  """Labels at and past 2^63 beside small ones and background 0: the
+  contacts on the card equal the host loop's, unsigned order kept."""
+  vol = random_volume((40, 36, 5), 6, 8, 3).astype(np.uint64)
+  vol = np.asfortranarray(np.where(vol >= 3, vol + np.uint64(top), vol))
+  binary = numpy_engine.compress(vol)
+  got, want = _host_and_card(
+    numpy_engine, dev, lambda: tops.contacts(binary, (0.3, 0.7, 1.1)))
+  assert got == want and len(want) > 3
+  assert max(b for _, b in want) >= 2 ** 63

@@ -272,3 +272,30 @@ def test_dryrun_multichip_cases_at_8():
   assert tpar.compress_sharded(vol, m) == binary
   vol64 = mkvol(np.uint64, sz) + np.uint64(2) ** 40
   assert tpar.compress_sharded(vol64, m) == crackle.compress(vol64)
+
+
+@pytest.mark.parametrize("n", SHARDS)
+@pytest.mark.parametrize("name", ["islands", "nuclei"])
+def test_sharded_decode_of_long_slices(monkeypatch, n, name):
+  """Slices past MAX_DEVICE_CAP (shrunk to 1024 codepoints in both
+  packages): the sharded entry points take them whole, as the
+  reference's do, and equal the reference, the volume and the unsharded
+  split decode."""
+  from crackle_tpu.kernels import engine as jeng
+  from test_torch_window import islands, nuclei_volume
+  monkeypatch.setattr(jeng, "MAX_DEVICE_CAP", 1024)
+  monkeypatch.setattr(teng, "MAX_DEVICE_CAP", 1024)
+  vol = islands(4, 96) if name == "islands" else nuclei_volume(120, 96, 5)
+  binary = crackle.compress(vol)
+  sz = vol.shape[2]
+  assert not teng._device_cap_ok(teng.prepare_slice_inputs(binary, 0, sz))
+  got = tpar.decompress_sharded(binary, mesh(n))
+  np.testing.assert_array_equal(got, vol)
+  np.testing.assert_array_equal(
+    got, rpar.decompress_sharded(binary, rpar.make_mesh()))
+  np.testing.assert_array_equal(got, teng.decode_window(binary, 0, sz,
+                                                        device="cpu"))
+  cc, N, _ = tpar.decode_window_ccl_sharded(binary, 0, sz, mesh(n))
+  want_cc, want_N, _ = teng.decode_window_ccl_device(binary, 0, sz, "cpu")
+  np.testing.assert_array_equal(cc, want_cc.numpy())
+  np.testing.assert_array_equal(N, want_N.numpy())
