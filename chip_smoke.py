@@ -3,7 +3,7 @@
 
   python3 chip_smoke.py        # one card
 
-Phases, one line each (phases 8 to 17 several):
+Phases, one line each (phases 8 to 19 several):
   1. the card (nvidia-smi name and power limit, torch's device name);
   2. build the CUDA kernels from crackle_tpu_torch/csrc;
   3. each kernel against its plain PyTorch version, bit for bit, on
@@ -113,11 +113,36 @@ Phases, one line each (phases 8 to 17 several):
      (6 and 26) of the 256^2 x 128 stream, equal to the oracle's; (e)
      remap, renumber, mask and zsplit of 512^3 decoded on the card with
      the CRC gate, equal to the oracle volume edited in numpy. No call
-     may decline.
+     may decline;
+ 19. the host arrays, util, the CLI and profiling under
+     set_engine('torch'), against the oracle's volume and bytes (a step
+     of phase 18's third child), each item's first call checked, then
+     timed (steady mean of 3, the busy share of one profiled call) beside
+     the card's name and power limit: (a) CrackleArray cutouts of the
+     flat 512^3 stream (whole, a box, one z, a z step of 3, after
+     [..., np.newaxis]); (b) an int over z 200-264 and an array over a
+     box written with __setitem__, the oracle's bytes; (c)
+     voxel_counts, centroids and bounding_boxes on the card; (d)
+     compressa of the labels and zstack of two CrackleArrays, the
+     oracle's bytes, and a cutout across the seam; (e) a cutout of the
+     pins stream; (f) CrackleRemoteArray slices of a file, its labels,
+     num_labels and `in`; (g) util's save and load, bload, aload, rload
+     of .ckl, .ckl.gz and .ckl.xz, and save_numpy; (h) the CLI through
+     click's CliRunner with the codec's engine at its default: -i, -l,
+     -T, -T of a copy with a flipped crack byte (exit 1, the slice
+     named), -d -k and the compress of its .npy, the busy shares of the
+     last three in a process of their own (this script run with --busy);
+     (i) profiling.trace() of a cutout in a process of its own (this
+     script run with --trace), whose Chrome trace must name the kernels
+     of each launched wrapper and an annotate span, and
+     profiling.timer(sync=tensor) around a decode. The decode kernels
+     (and slice_stats) must be launched; no call may decline.
 
 Any failure raises and exits non-zero; without a CUDA device the
 script exits 2 and prints no result (run with --rank it is one rank of
-phase 17's two-process run), and it imports nothing of JAX or
+phase 17's two-process run, with --trace phase 19's traced cutout, with
+--busy phase 19's CLI busy shares), and
+it imports nothing of JAX or
 of crackle_tpu (it fails if any such module is loaded, here or in the
 oracle). The last three lines are the card's name and power limit, the
 kernels' JSON (each kernel's launches on its path, its largest
@@ -202,6 +227,11 @@ CUTOUTS = [("512^3", VOL512, "100:300, 50:450, 200:264"),
 #   mode_pooling: [ckl, out]: out receives operations.mode_pooling_2x2x1
 #   cc:        [ckl, connectivity, out] triples: out receives
 #              operations.connected_components
+#   arrays:    [ckl, set_int, set_box, set_data, outs]: phase 19's
+#              CrackleArray edits and encodes of the stream: outs[0]
+#              receives the stream after [set_int] = 0, outs[1] after
+#              [set_box] = volume[set_data], outs[2] compress(volume) and
+#              outs[3] zstack of the stream and outs[0]
 #   json:      the file that receives the array_equal results and the
 #              seconds of each of the steps above
 # Each step's end is logged to stderr with the seconds since the start.
@@ -365,6 +395,21 @@ if "long" in spec:
   with open(js, "w") as f:
     json.dump(secs, f)
   done("the long-slice volume")
+if "arrays" in spec:
+  from crackle_tpu_torch import operations
+  from crackle_tpu_torch.array import CrackleArray
+  src, set_int, set_box, set_data, outs = spec["arrays"]
+  b = read(src)
+  vol = vols[src] if src in vols else codec.decompress(b)
+  edits = [CrackleArray(b), CrackleArray(b)]
+  edits[0][eval(f"np.s_[{set_int}]")] = 0
+  edits[1][eval(f"np.s_[{set_box}]")] = vol[eval(f"np.s_[{set_data}]")]
+  results = [edits[0].binary, edits[1].binary, codec.compress(vol),
+             operations.zstack([CrackleArray(b), edits[0]])]
+  for dst, binary in zip(outs, results):
+    with open(dst, "wb") as f:
+      f.write(binary)
+  done("CrackleArray edits, compress and zstack")
 if "json" in spec:
   from crackle_tpu_torch import operations
   from crackle_tpu_torch.ops import analytics
@@ -1298,7 +1343,7 @@ def run(dev, card, kind, oracles, paths, t_or):
           f"mean of 20): " + share_line("slice_stats", ms_w, io_w, 256))
   parts = device_ms_by_kernel(
     lambda: stats.slice_stats(cc_w, 512, 512, cap_w),
-    ("stats_init", "slice_stats"))
+    DEVICE_KERNELS["slice_stats"])
   say(11, "slice_stats passes per window (torch.profiler, one call): "
           + (", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
              if parts else "not measured"))
@@ -1355,6 +1400,9 @@ def run(dev, card, kind, oracles, paths, t_or):
   # 18: the stream operations and analytics on the card
   launches["operations"] = phase_operations(dev, ops_oracle, paths)
 
+  # 19: the host arrays, util, the CLI and profiling on the card
+  launches["arrays"] = phase_arrays(dev, stream, paths, ops_oracle, card)
+
   check_no_reference()
   out = []
   for name, src, repl, also, path in KERNELS:
@@ -1373,6 +1421,7 @@ def run(dev, card, kind, oracles, paths, t_or):
     row["sharded_launches"] = {path: n[name] for path, n in sharded.items()
                                if n.get(name)}
     row["operations_launches"] = launches["operations"][name]
+    row["arrays_launches"] = launches["arrays"][name]
     out.append(row)
   print(card)
   print(json.dumps({"kernels": out}))
@@ -2286,8 +2335,9 @@ def start_ops_oracle(paths):
   """Start phase 18's host oracle in four child processes on the files
   phases 1-3 wrote: the host-loop VCG (4 and 6) of the flat 512^3,
   markov-5, u64 and long-slice streams in one, of the pins 512^3 stream
-  in another, the contacts of the pins 512^3 stream in a third, and in
-  the fourth the other contacts and the host functions of phase 18 (d).
+  in another, the contacts of the pins 512^3 stream and phase 19's
+  CrackleArray edits in a third, and in the fourth the other contacts and
+  the host functions of phase 18 (d).
   Writes (d)'s array_equal partner first: a copy of the 256^2 stream
   with its first slice moved last. Returns (the processes, the paths
   they write)."""
@@ -2307,6 +2357,7 @@ def start_ops_oracle(paths):
          "each": os.path.join(tmp, "each.npz"),
          "mode_pooling": os.path.join(tmp, "pooled.ckl"),
          "cc": {c: os.path.join(tmp, f"cc{c}.ckl") for c in (6, 26)},
+         "arrays": [os.path.join(tmp, f"arrays{i}.ckl") for i in range(4)],
          "json": [os.path.join(tmp, f"ops{i}.json") for i in range(4)]}
   # four children of about a minute each: the pins host loops are the
   # slowest
@@ -2317,7 +2368,8 @@ def start_ops_oracle(paths):
     {"vcg": [[cells["pins 512^3"], c, vcg["pins 512^3", c]]
              for c in (4, 6)]},
     {"contacts": [[cells["pins 512^3"], an["pins 512^3"],
-                   contacts["pins 512^3"]]]},
+                   contacts["pins 512^3"]]],
+     "arrays": [VOL512, SET_INT, SET_BOX, SET_DATA, out["arrays"]]},
     {"contacts": [[cells[tag], an[tag], contacts[tag]]
                   for tag in an if tag != "pins 512^3"],
      "each": [VOL256, EACH_LABELS, out["each"]],
@@ -2597,6 +2649,435 @@ def edit_lines(b512, paths, total, dev):
             f"({head.dtype}; {t:.3f} s); launches {n}")
 
 
+# phase 19: CrackleArray cutouts of the flat 512^3 stream (numpy's
+# indexing and CrackleArray's agree on these), the edits the oracle
+# repeats (an int over whole slices, past the first 8, which the zstack
+# seam's cutout reads as they were; an array over a box), the pins
+# cutout, the remote array's slices and the slice the CLI's -T must name
+ARRAY_CUTOUTS = [":, :, :", "100:300, 50:450, 200:264", ":, :, 300",
+                 ":, :, ::3"]
+SET_INT = ":, :, 200:264"
+SET_BOX = "100:300, 50:450, 200:264"
+SET_DATA = "100:300, 50:450, 0:64"
+PINS_CUTOUT = "100:300, 50:450, 200:264"
+REMOTE_Z = (0, 255, 511)
+CRACK_Z = 317
+TRACE_Z = (0, 64)
+
+
+def flip_crack_byte(binary, z):
+  """binary with a byte in the middle of slice z's crack code flipped,
+  its stored CRC as it was."""
+  head = pcodec.header(binary)
+  codes = pcodec.crack_codes(binary)
+  trailer = (head.sz + 1) * 4 if head.format_version else 0
+  end = len(binary) - trailer - sum(len(c) for c in codes[z + 1:])
+  out = bytearray(binary)
+  out[end - len(codes[z]) + len(codes[z]) // 2] ^= 0x5A
+  return bytes(out)
+
+
+def payload(path):
+  """A file's bytes through its compression suffix."""
+  import gzip
+  import lzma
+  opener = {".gz": gzip.open, ".xz": lzma.open}.get(
+    os.path.splitext(path)[1], open)
+  with opener(path, "rb") as f:
+    return f.read()
+
+
+def item_line(what, fn, check, path, total, card, profile=True):
+  """One phase-19 item: its first call, checked by check(result) and its
+  launches by require_path(path); then 3 calls on the host clock,
+  the card synchronised after each, and (with profile) one profiled
+  call's busy share; the launch counts start again at 0 and the first
+  call's are added to total."""
+  ct.reset_launches()
+  t0 = time.perf_counter()
+  got = fn()
+  torch.cuda.synchronize()
+  first = (time.perf_counter() - t0) * 1e3
+  n = take(total)
+  check(got)
+  if path is not None:
+    require_path(what, n, path)
+  del got
+  ms = []
+  for _ in range(3):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    ms.append((time.perf_counter() - t0) * 1e3)
+  if profile:
+    wall, busy, nev = busy_split(fn)
+    shared = (f"one profiled call {wall:.3f} ms of wall, device busy "
+              + (f"{busy:.3f} ms ({100 * busy / wall:.1f}%)"
+                 if busy is not None else "not measured")
+              + f" ({nev} device events)")
+  else:
+    shared = "busy share in a fresh process (below)"
+  ct.reset_launches()
+  mean = sum(ms) / len(ms)
+  say(19, f"{what}: equal to the oracle; first call {first:.3f} ms; steady "
+          f"ms " + ", ".join(f"{x:.3f}" for x in ms) + f"; mean {mean:.3f} "
+          f"ms; {shared}; launches {n} ({card})")
+
+
+def require_array(what, got, want):
+  if not isinstance(got, np.ndarray) or got.dtype != want.dtype or \
+     got.shape != want.shape or not np.array_equal(got, want):
+    raise AssertionError(
+      f"{what}: {type(got).__name__} {getattr(got, 'dtype', None)} "
+      f"{getattr(got, 'shape', None)} differs from the oracle's "
+      f"{want.dtype} {want.shape}")
+
+
+def phase_arrays(dev, stream, paths, ops_oracle, card):
+  """Phase 19: the host arrays, util, the CLI and profiling under
+  set_engine('torch') on dev, against the oracle's volume and bytes; see
+  the module docstring. Returns the launches of each item's first call,
+  summed."""
+  from click.testing import CliRunner
+  from crackle_tpu_torch import cli
+  from crackle_tpu_torch.utils import profiling
+  out = ops_oracle[0]
+  set_int, set_box, comp, stacked = (read(p) for p in out["arrays"])
+  b512, bp512 = read(VOL512), read(paths["pins512"])
+  head = pcodec.header(b512)
+  sx, sy, sz = head.sx, head.sy, head.sz
+  vol = np.load(paths["512"]).reshape(sz, sy, sx).transpose(2, 1, 0)
+  orc = np.load(paths["stats"])
+  total = {name: 0 for name, *_ in KERNELS}
+  tmp = tempfile.mkdtemp(dir=os.path.dirname(paths["stats"]))
+  pcodec.set_engine("torch", device=dev)
+  try:
+    with HostDeclines() as declines:
+      arr = ct.CrackleArray(b512)
+      # (a) cutouts
+      for key in ARRAY_CUTOUTS:
+        want = vol[eval(f"np.s_[{key}]")]
+        item_line(f"(a) CrackleArray(512^3)[{key}]",
+                  lambda key=key: arr[eval(f"np.s_[{key}]")],
+                  lambda got, want=want: require_array(key, got, want),
+                  "flat", total, card)
+      wide = ct.CrackleArray(b512)
+      if wide[..., np.newaxis] is not wide or wide.shape != (sx, sy, sz, 1):
+        raise AssertionError("[..., np.newaxis] did not add a trailing axis")
+      item_line("(a) CrackleArray(512^3)[..., np.newaxis][:, :, 10:20]",
+                lambda: wide[:, :, 10:20],
+                lambda got: require_array("newaxis", got,
+                                          vol[:, :, 10:20, np.newaxis]),
+                "flat", total, card)
+      # (b) edits
+      for tag, key, data, want, path in (
+          # the int edit encodes only; the box one decodes its window first
+          ("int", SET_INT, lambda: 0, set_int, "encode"),
+          ("array", SET_BOX, lambda: np.array(vol[eval(f"np.s_[{SET_DATA}]")]),
+           set_box, "flat")):
+        def edit(key=key, data=data):
+          a = ct.CrackleArray(b512)
+          a[eval(f"np.s_[{key}]")] = data()
+          return a.binary
+        item_line(f"(b) CrackleArray(512^3)[{key}] = {tag}", edit,
+                  lambda got, want=want, tag=tag: require_bytes(
+                    f"the {tag} edit", got, want), path, total, card)
+      # (c) statistics on the card
+      stats = {}
+      for fn in ("voxel_counts", "centroids", "bounding_boxes"):
+        kw = {"no_slice_conversion": True} if fn == "bounding_boxes" else {}
+        item_line(f"(c) CrackleArray(512^3).{fn}()",
+                  lambda fn=fn, kw=kw: getattr(arr, fn)(**kw),
+                  lambda got, fn=fn: stats.__setitem__(fn, got),
+                  "analytics", total, card)
+      check_analytics(orc, stats["voxel_counts"], stats["centroids"],
+                      stats["bounding_boxes"])
+      say(19, "(c) voxel_counts and bounding_boxes equal to the numpy "
+              "oracle, centroids within rtol 1e-12")
+      # (d) compressa, zstack
+      item_line("(d) compressa(512^3 labels)", lambda: ct.compressa(vol),
+                lambda got: require_bytes("compressa", got.binary, comp),
+                "encode", total, card)
+      item_line("(d) zstack([CrackleArray(512^3), CrackleArray(512^3 "
+                "edited)])", lambda: ct.zstack(
+                  [arr, ct.CrackleArray(set_int)]),
+                lambda got: require_bytes("zstack", got, stacked), None,
+                total, card)
+      seam = ct.CrackleArray(stacked)
+      item_line(f"(d) CrackleArray(zstack)[:, :, {sz - 12}:{sz + 8}] "
+                f"across the seam", lambda: seam[:, :, sz - 12:sz + 8],
+                lambda got: require_array("the seam", got, np.concatenate(
+                  [vol[:, :, sz - 12:], vol[:, :, 0:8]], axis=2)),
+                "flat", total, card)
+      # (e) pins
+      pins = ct.CrackleArray(bp512)
+      item_line(f"(e) CrackleArray(pins 512^3)[{PINS_CUTOUT}]",
+                lambda: pins[eval(f"np.s_[{PINS_CUTOUT}]")],
+                lambda got: require_array("pins cutout", got,
+                                          vol[eval(f"np.s_[{PINS_CUTOUT}]")]),
+                "pins", total, card)
+      # (f) the remote array over a file
+      ckl = os.path.join(tmp, "vol.ckl")
+      with open(ckl, "wb") as f:
+        f.write(b512)
+      remote = ct.CrackleRemoteArray(ckl)
+      for z in REMOTE_Z:
+        item_line(f"(f) CrackleRemoteArray(512^3 file)[{z}]",
+                  lambda z=z: remote[z],
+                  lambda got, z=z: require_array(f"remote z={z}", got,
+                                                 vol[:, :, z]),
+                  "flat", total, card)
+      uniq = pcodec.labels(b512)
+      if not np.array_equal(remote.labels(), uniq) or \
+         remote.num_labels() != len(uniq) or int(uniq[7]) not in remote or \
+         int(uniq.max()) + 1 in remote:
+        raise AssertionError("the remote array's labels differ")
+      n = take(total)
+      say(19, f"(f) CrackleRemoteArray labels(), num_labels() ({len(uniq)}) "
+              f"and `in` equal to the stream's; launches {n}")
+      # (g) util round trips
+      for ext in (".ckl", ".ckl.gz", ".ckl.xz"):
+        path = os.path.join(tmp, "saved" + ext)
+
+        def save_load(path=path):
+          ct.save(ct.CrackleArray(b512), path)
+          return ct.load(path)
+        item_line(f"(g) save(CrackleArray, '{ext}') and load", save_load,
+                  lambda got: require_array("load", got, vol), "flat",
+                  total, card)
+        if payload(path) != b512 or ct.bload(path) != b512 or \
+           ct.aload(path).binary != b512:
+          raise AssertionError(f"{ext}: bload or aload differ from the "
+                               f"stream")
+        if ext == ".ckl":
+          z = REMOTE_Z[1]
+          require_array("rload", ct.rload(path)[z], vol[:, :, z])
+        n = take(total)
+        say(19, f"(g) {ext}: the file holds the stream's bytes; bload, "
+                f"aload" + (" and rload" if ext == ".ckl" else "")
+                + f" equal; launches {n}")
+      npy = os.path.join(tmp, "saved.npy")
+      item_line("(g) save_numpy(CrackleArray(512^3))",
+                lambda: ct.save_numpy(ct.CrackleArray(b512), npy),
+                lambda got: require_array("save_numpy", np.load(npy), vol),
+                "flat", total, card)
+      # (h) the CLI in-process, the codec's engine at its default ('auto',
+      # which the CLI turns into 'torch' on the card); the busy shares of
+      # the items after the first -T in a fresh process (see busy_main)
+      pcodec.set_engine("auto")
+      cdir = os.path.join(tmp, "cli")
+      os.makedirs(cdir)
+      cwd = os.getcwd()
+      os.chdir(cdir)
+      try:
+        with open("vol.ckl", "wb") as f:
+          f.write(b512)
+        with open("cracked.ckl", "wb") as f:
+          f.write(flip_crack_byte(b512, CRACK_Z))
+
+        def run_cli(*args):
+          return CliRunner().invoke(cli.main, list(args))
+
+        def expect(code, *texts):
+          def check(res):
+            if res.exception is not None and \
+               not isinstance(res.exception, SystemExit):
+              raise res.exception
+            if res.exit_code != code or any(t not in res.output
+                                            for t in texts):
+              raise AssertionError(f"exit {res.exit_code}: "
+                                   f"{res.output[-500:]}")
+          return check
+
+        item_line("(h) crackle-torch -i vol.ckl", lambda: run_cli(
+          "-i", "vol.ckl"), expect(0, f"num labels:    {len(uniq)}"), None,
+          total, card)
+        item_line("(h) crackle-torch -l vol.ckl", lambda: run_cli(
+          "-l", "vol.ckl"), expect(0, "\n".join(str(int(u)) for u in uniq)),
+          None, total, card)
+        item_line("(h) crackle-torch -T vol.ckl", lambda: run_cli(
+          "-T", "vol.ckl"), expect(0, "vol.ckl: OK"), "flat", total, card)
+        item_line(f"(h) crackle-torch -T cracked.ckl (slice {CRACK_Z})",
+                  lambda: run_cli("-T", "cracked.ckl"),
+                  expect(1, "cracked.ckl: CORRUPTED",
+                         f"damaged z slices: [{CRACK_Z}]"), "flat", total,
+                  card, profile=False)
+        item_line("(h) crackle-torch -d -k vol.ckl", lambda: run_cli(
+          "-d", "-k", "vol.ckl"), lambda res: (expect(0, "wrote vol.npy")(
+            res), require_array("-d", np.load("vol.npy"), vol)), "flat",
+          total, card, profile=False)
+        os.replace("vol.npy", "labels.npy")
+
+        def compress_cli():
+          res = run_cli("-k", "labels.npy")
+          expect(0, "wrote labels.ckl")(res)
+          return read("labels.ckl")
+        item_line("(h) crackle-torch -k labels.npy", compress_cli,
+                  lambda got: require_bytes("the CLI's compress", got, comp),
+                  "encode", total, card, profile=False)
+      finally:
+        os.chdir(cwd)
+        pcodec.set_engine("torch", device=dev)
+      busy_cli(cdir, card)
+      # (i) profiling: trace() in a process of its own (see trace_main)
+      t0 = time.perf_counter()
+      proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--trace", json.dumps(
+          {"ckl": VOL512, "rows": paths["512"], "z": TRACE_Z,
+           "device": str(dev), "dir": os.path.join(tmp, "trace")})],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+      ok = [x for x in proc.stdout.splitlines() if x.startswith("trace OK ")]
+      if proc.returncode != 0 or not ok:
+        raise AssertionError(f"the trace child failed ({proc.returncode}):"
+                             f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+      rep = json.loads(ok[0][len("trace OK "):])
+      for k, v in rep["launches"].items():
+        total[k] += v
+      say(19, f"(i) profiling.trace() of CrackleArray(512^3)[:, :, "
+              f"{TRACE_Z[0]}:{TRACE_Z[1]}] in a fresh process "
+              f"({rep['ms']:.3f} ms traced; the child "
+              f"{time.perf_counter() - t0:.1f} s): equal to the oracle, and "
+              f"its Chrome trace names the annotate span and the kernels of "
+              f"every launched wrapper {rep['launches']} "
+              f"({rep['events']} events, {rep['kernels']} kernel events)")
+      with profiling.timer(sync=stream.packed) as box:
+        stream.decode_window(0, sz, check_crcs=True)
+      with profiling.timer(sync=stream.packed) as empty:
+        pass
+      say(19, f"(i) profiling.timer(sync=tensor) around decode_window(0, "
+              f"{sz}, check_crcs=True): {box['seconds'] * 1e3:.3f} ms; "
+              f"around nothing {empty['seconds'] * 1e3:.3f} ms ({card})")
+    say(19, declines.require_none("host-array"))
+  finally:
+    pcodec.set_engine("auto")
+  say(19, f"host-array launches (each item's first call) {total}")
+  missing = [k for k in PATHS["flat"] + PATHS["pins"] + ("slice_stats",)
+             if not total[k]]
+  if missing:
+    raise AssertionError(f"phase 19 launched none of {missing}")
+  return total
+
+
+# the CLI's command lines whose busy share busy_main takes, each with its
+# exit code and the path its launches must show; -T last (see busy_main)
+BUSY_CLI = [(["-d", "-k", "vol.ckl"], 0, "flat"),
+            (["-k", "labels.npy"], 0, "encode"),
+            (["-T", "cracked.ckl"], 1, "flat")]
+
+
+def busy_cli(cdir, card):
+  """Phase 19 (h): one profiled call of each of BUSY_CLI in the CLI's
+  directory cdir, in a process of its own (busy_main)."""
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+    [sys.executable, os.path.abspath(__file__), "--busy", json.dumps(
+      {"dir": cdir, "commands": BUSY_CLI})],
+    cwd=ROOT, capture_output=True, text=True, timeout=300)
+  ok = [x for x in proc.stdout.splitlines() if x.startswith("busy OK ")]
+  if proc.returncode != 0 or not ok:
+    raise AssertionError(f"the busy child failed ({proc.returncode}):"
+                         f"\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+  for (args, _, path), r in zip(BUSY_CLI, json.loads(ok[0][len("busy OK "):])):
+    what = "(h) crackle-torch " + " ".join(args)
+    require_path(what, r["launches"], path)
+    wall, busy = r["wall"], r["busy"]
+    say(19, f"{what} in a fresh process, the codec's engine at its default: "
+            f"one profiled call {wall:.3f} ms of wall, device busy "
+            + (f"{busy:.3f} ms ({100 * busy / wall:.1f}%)"
+               if busy is not None else "not measured")
+            + f" ({r['events']} device events); launches {r['launches']} "
+            f"({card})")
+  say(19, f"(h) the busy child took {time.perf_counter() - t0:.1f} s")
+
+
+def busy_main(spec):
+  """Phase 19 (h) (chip_smoke.py --busy SPEC, SPEC a JSON object: the
+  CLI's directory and BUSY_CLI): one profiled call of each command line
+  through click's CliRunner, the codec's engine left at its default, after
+  an unprofiled call of each but the last. A process of its own, and the
+  -T last, since torch.profiler (2.11 on the H100 machine) drops the
+  kernel records of later sessions once the process has recorded a
+  session of some 10^5 device events, as a -T of 512^3 is."""
+  from click.testing import CliRunner
+  from crackle_tpu_torch import cli
+  if pcodec.get_engine() != "auto":
+    raise AssertionError(f"the engine is {pcodec.get_engine()}, not auto")
+  os.chdir(spec["dir"])
+
+  def run(args, code):
+    res = CliRunner().invoke(cli.main, args)
+    if res.exception is not None and \
+       not isinstance(res.exception, SystemExit):
+      raise res.exception
+    if res.exit_code != code:
+      raise AssertionError(f"{args}: exit {res.exit_code}: "
+                           f"{res.output[-500:]}")
+  out = []
+  with HostDeclines() as declines:
+    for args, code, _ in spec["commands"][:-1]:
+      run(args, code)
+    for args, code, _ in spec["commands"]:
+      ct.reset_launches()
+      wall, busy, nev = busy_split(lambda: run(args, code))
+      out.append({"wall": wall, "busy": busy, "events": nev,
+                  "launches": launched_now()})
+  declines.require_none("the CLI's")
+  check_no_reference()
+  print("busy OK " + json.dumps(out), flush=True)
+  return 0
+
+
+def trace_main(spec):
+  """Phase 19 (i) (chip_smoke.py --trace SPEC, SPEC a JSON object: the
+  stream, the oracle's rows of it, the cutout's z range, the device, a
+  directory): profiling.trace() around an annotated CrackleArray cutout
+  [:, :, z0:z1] under set_engine('torch') on the device, after a warm
+  one; its Chrome trace must name the annotate span and a device kernel
+  (DEVICE_KERNELS) of every wrapper LAUNCHES counted. A process of
+  its own, since torch.profiler (2.11 on the H100 machine) drops the first
+  kernel records of a session once the process has recorded sessions of
+  some 10^5 device events, as phase 19 (h)'s profiled -T calls are."""
+  from crackle_tpu_torch.utils import profiling
+  dev = torch.device(spec["device"])
+  binary = read(spec["ckl"])
+  head = pcodec.header(binary)
+  rows = np.load(spec["rows"], mmap_mode="r")
+  z0, z1 = spec["z"]
+  pcodec.set_engine("torch", device=dev)
+  arr = ct.CrackleArray(binary)
+  cut = profiling.annotate("crackle_array_cutout")(lambda: arr[:, :, z0:z1])
+  cut()
+  torch.cuda.synchronize()
+  ct.reset_launches()
+  t0 = time.perf_counter()
+  with profiling.trace(spec["dir"]) as d:
+    got = cut()
+  ms = (time.perf_counter() - t0) * 1e3
+  n = launched_now()
+  require_volume("the traced cutout", got, rows[z0:z1], head)
+  require_path("the traced cutout", n, "flat")
+  names = trace_names(d)
+  missing = [k for k in n if not any(
+    f"{dk}_kernel" in e for dk in DEVICE_KERNELS[k] for e in names)]
+  if missing or "crackle_array_cutout" not in names:
+    raise AssertionError(f"the trace lacks {missing} or the span "
+                         f"({len(names)} events)")
+  check_no_reference()
+  kernels = sum(1 for e in names if "_kernel" in e)
+  print("trace OK " + json.dumps({"launches": n, "ms": ms,
+                                  "events": len(names), "kernels": kernels}),
+        flush=True)
+  return 0
+
+
+def trace_names(log_dir):
+  """The event names of the Chrome trace profiling.trace wrote."""
+  import glob
+  (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+  with open(path) as f:
+    return [e.get("name", "") for e in json.load(f)["traceEvents"]]
+
+
 def long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys, dev):
   """Host and device times of each stage of the long-slice decode."""
   sx, sy, sz = head.sx, head.sy, head.sz
@@ -2699,7 +3180,23 @@ def replay_stage_line(s, stages):
           f"same events {sort_ms:.4f} ms (not on the path)")
 
 
-CCL_PASSES = ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank", "ccl_fill")
+# wrapper name -> the names of the device kernels (csrc/, each
+# f"{name}_kernel") that one launch of it may run, as a profiler trace
+# lists them
+DEVICE_KERNELS = {
+  "replay_keys": ("replay_keys",),
+  "replay_positions": ("replay_positions",),
+  "paint_vcg": ("paint_vcg", "paint_vcg_bands"),
+  "ccl_paint": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank",
+                "ccl_fill"),
+  "ccl_min": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank"),
+  "plant": ("plant",),
+  "slice_stats": ("stats_init", "slice_stats"),
+  "cancel_sums": ("cancel_sums",),
+  "compact_closes": ("compact_closes",),
+  "replay_positions_compact": ("replay_positions_compact",),
+}
+CCL_PASSES = DEVICE_KERNELS["ccl_paint"]
 
 
 def ccl_pass_times(s, tile):
@@ -2893,4 +3390,8 @@ def busy_share(s):
 if __name__ == "__main__":
   if sys.argv[1:2] == ["--rank"]:
     sys.exit(rank_main(json.loads(sys.argv[2])))
+  if sys.argv[1:2] == ["--trace"]:
+    sys.exit(trace_main(json.loads(sys.argv[2])))
+  if sys.argv[1:2] == ["--busy"]:
+    sys.exit(busy_main(json.loads(sys.argv[2])))
   sys.exit(main())

@@ -23,18 +23,40 @@ nothing of JAX.
   vcg = voxel_connectivity_graph(binary)  # replay kernels on the card
   areas = contacts(binary, (4, 4, 40))    # labels decoded on the card
 
+  arr = CrackleArray(binary)              # the stream in host memory
+  cutout = arr[100:300, 50:450, 200:264]  # host numpy, through the codec
+  arr[:, :, 200:264] = 0                  # an edit, encoded through it
+  slab = rload("vol.ckl")[7]              # one slice read by byte ranges
+  save(arr, "vol.ckl.gz"); arr = aload("vol.ckl.gz")
+
+The host arrays (CrackleArray, CrackleRemoteArray), util's save and load
+and the command line (crackle_tpu_torch.cli, installed as crackle-torch)
+decode and encode through the codec too; their statistics run on the
+codec engine's device. The command line takes the torch engine on the
+card where one is present and the engine is 'auto'.
+
 The stream operations (remap, mask, zsplit, full, the scalar operators,
 ...) are host byte surgery, as in the reference; what decodes
 (voxel_connectivity_graph, contacts, structure_equal, array_equal, each,
 mode_pooling_2x2x1, connected_components, recompress) goes through the
-codec's engine, so set_engine('torch') (or 'auto' with a card) sends it
-to the card, and set_engine('torch', device="cpu") to the plain versions.
+codec's engine, so set_engine('torch') sends it to the card ('auto'
+with a card sends pins, markov and label= windows there and decodes flat
+ones with the native host decoder first), and set_engine('torch',
+device="cpu") to the plain versions.
 
 On a CUDA tensor each kernel wrapper launches its kernel (or raises);
 on a CPU tensor it runs the kernel's plain PyTorch version.
 """
-from .array import CrackleDeviceArray
-from .codec import get_engine, set_engine
+from .array import CrackleArray, CrackleDeviceArray, CrackleRemoteArray
+from .codec import (
+  compress, compressa, decompress, labels, labels_for_z_range,
+  nbytes, components, component_lengths,
+  header, contains, contains_range, crack_codes, num_labels,
+  reencode, condense_unique, ok, check,
+  raw_labels, background_color, decode_pins,
+  get_engine, set_engine,
+)
+from .headers import CrackleHeader
 from .kernels._build import LAUNCHES, reset_launches
 from .kernels.ccl import (
   ccl_min, ccl_paint, ccl_paint_v2, plant, roots_from_tgt,
@@ -69,9 +91,19 @@ from .operations import (
   array_equal, structure_equal,
   mode_pooling_2x2x1,
 )
+from .util import save, load, aload, bload, rload, save_numpy
+
+__version__ = "0.1.0"
 
 __all__ = [
-  "CrackleDeviceArray", "get_engine", "set_engine", "LAUNCHES",
+  "CrackleArray", "CrackleDeviceArray", "CrackleRemoteArray",
+  "compress", "compressa", "decompress", "labels", "labels_for_z_range",
+  "nbytes", "components", "component_lengths", "header", "contains",
+  "contains_range", "crack_codes", "num_labels", "reencode",
+  "condense_unique", "ok", "check", "raw_labels", "background_color",
+  "decode_pins", "CrackleHeader", "save", "load", "aload", "bload",
+  "rload", "save_numpy", "__version__",
+  "get_engine", "set_engine", "LAUNCHES",
   "reset_launches", "ccl_min", "ccl_paint", "ccl_paint_v2", "plant",
   "roots_from_tgt", "decode_slices_full", "decode_slices_full_pins",
   "decode_slices_full_plant", "decode_slices_to_ccl", "CrackFormat",

@@ -896,6 +896,13 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
                    stored_model)
 
 
+def compressa(*args, **kwargs):
+  """compress, returning a CrackleArray."""
+  from .array import CrackleArray
+  return CrackleArray(compress(*args, **kwargs),
+                      parallel=kwargs.get("parallel", 0))
+
+
 # ---------------------------------------------------------------------------
 # Reencode (markov order change) & stream maintenance
 # ---------------------------------------------------------------------------

@@ -8,8 +8,7 @@ The edits are host byte surgery, as in the reference. What decodes goes
 through the port's codec, so set_engine sends it to the card:
 recompress, array_equal and mode_pooling_2x2x1 decode and encode there
 under a torch engine, and voxel_connectivity_graph, contacts and
-structure_equal take ops/analytics.py's device routes. The port has no
-CrackleArray yet, so zstack takes bytes and numpy arrays.
+structure_equal take ops/analytics.py's device routes.
 """
 import builtins
 from collections import defaultdict
@@ -405,9 +404,12 @@ def _check_stackable(ref: CrackleHeader, head: CrackleHeader):
 
 
 def zstack(images: Sequence) -> bytes:
-  """Stack numpy arrays and .ckl binaries along z into one stream
-  without decompressing pixel data: crack codes splice byte-for-byte
-  with their crcs carried over; only the label dictionary merges."""
+  """Stack numpy arrays, CrackleArrays and .ckl binaries along z into one
+  stream without decompressing pixel data: crack codes splice
+  byte-for-byte with their crcs carried over; only the label dictionary
+  merges."""
+  from .array import CrackleArray
+
   parts: List[bytes] = []
   ref = None
   for img in images:
@@ -416,9 +418,10 @@ def zstack(images: Sequence) -> bytes:
     if isinstance(img, np.ndarray):
       binary = compress(img)
     else:
+      raw = img.binary if isinstance(img, CrackleArray) else img
       # markov bitstreams are model-specific; normalize so the spliced
       # crack sections share one (absent) model
-      binary = reencode(img, markov_model_order=0)
+      binary = reencode(raw, markov_model_order=0)
     head = header(binary)
     if ref is None:
       ref = head

@@ -908,3 +908,134 @@ def test_contacts_of_u64_labels_on_card(dev, numpy_engine, top):
     numpy_engine, dev, lambda: tops.contacts(binary, (0.3, 0.7, 1.1)))
   assert got == want and len(want) > 3
   assert max(b for _, b in want) >= 2 ** 63
+
+
+def _kernel_names_in(log_dir):
+  """The names of the events of the Chrome trace trace() wrote."""
+  import glob
+  import json
+  import os
+  (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+  with open(path) as f:
+    return [e.get("name", "") for e in json.load(f)["traceEvents"]]
+
+
+def _edit(arr, vol):
+  """An array over a box, then an int over whole slices (the
+  reference's __setitem__ takes an int over whole slices only)."""
+  arr[20:50, :, 2:5] = vol[20:50, :, 7:10]
+  arr[:, :, 9:11] = 7
+
+
+@pytest.mark.parametrize("name", ["flat", "pins"])
+def test_crackle_array_on_card(dev, numpy_engine, name):
+  """CrackleArray cutouts and edits under set_engine('torch'): the host
+  engine's arrays and bytes, with the decode kernels launched; the
+  statistics on the card (pins streams: the host loop, and no edit, as
+  zsplit takes none)."""
+  vol = random_volume((96, 64, 12), 3, 3, 60)
+  binary = numpy_engine.compress(vol, allow_pins=(name == "pins"))
+  assert numpy_engine.header(binary).label_format == (2 if name == "pins"
+                                                      else 0)
+  keys = [np.s_[:, :, :], np.s_[10:70, 5:60, 3:9], np.s_[:, :, 4],
+          np.s_[:, :, ::3]]
+  want = [ct.CrackleArray(binary)[k] for k in keys]
+  host = ct.CrackleArray(binary)
+  if name == "flat":
+    _edit(host, vol)
+  vc = host.voxel_counts()
+  numpy_engine.set_engine("torch", device=dev)
+  try:
+    arr = ct.CrackleArray(binary)
+    ct.reset_launches()
+    for k, w in zip(keys, want):
+      np.testing.assert_array_equal(arr[k], w)
+    assert ct.LAUNCHES["replay_keys"] > 0
+    assert ct.LAUNCHES["ccl_paint" if name == "flat" else "ccl_min"] > 0
+    if name == "flat":
+      _edit(arr, vol)
+      assert arr.binary == host.binary
+    else:
+      with pytest.raises(ValueError):
+        _edit(arr, vol)
+    ct.reset_launches()
+    assert arr.voxel_counts() == vc
+    assert ct.LAUNCHES["slice_stats"] == (name == "flat")
+  finally:
+    numpy_engine.set_engine("numpy")
+
+
+def test_remote_array_slices_on_card(dev, numpy_engine, tmp_path):
+  """CrackleRemoteArray slices of a file under set_engine('torch'): each
+  one-slice stream it builds passes the CRC gate on the card."""
+  vol = random_volume((96, 64, 9), 3, 4, 60)
+  binary = numpy_engine.compress(vol)
+  path = str(tmp_path / "v.ckl")
+  with open(path, "wb") as f:
+    f.write(binary)
+  numpy_engine.set_engine("torch", device=dev)
+  try:
+    remote = ct.CrackleRemoteArray(path)
+    ct.reset_launches()
+    for z in (0, 4, 8):
+      np.testing.assert_array_equal(remote[z], vol[:, :, z])
+    assert ct.LAUNCHES["ccl_paint"] == 3
+  finally:
+    numpy_engine.set_engine("numpy")
+
+
+def test_cli_decodes_and_encodes_on_card(dev, numpy_engine, tmp_path,
+                                         monkeypatch):
+  """The command line with the codec's engine at its default ('auto')
+  decodes and encodes a flat stream on the card: -d -k launches the
+  decode kernels, the compress of its .npy ccl_paint, and the bytes
+  equal the host engine's."""
+  from click.testing import CliRunner
+  from crackle_tpu_torch import cli
+  vol = random_volume((96, 64, 7), 3, 4, 60)
+  binary = numpy_engine.compress(vol)
+  (tmp_path / "v.ckl").write_bytes(binary)
+  monkeypatch.chdir(tmp_path)
+  numpy_engine.set_engine("auto")
+  ct.reset_launches()
+  res = CliRunner().invoke(cli.main, ["-d", "-k", "v.ckl"])
+  assert res.exit_code == 0, res.output
+  assert ct.LAUNCHES["replay_keys"] and ct.LAUNCHES["ccl_paint"]
+  got = np.load(tmp_path / "v.npy")
+  np.testing.assert_array_equal(got, vol)
+  (tmp_path / "v.ckl").unlink()
+  ct.reset_launches()
+  res = CliRunner().invoke(cli.main, ["-k", "v.npy"])
+  assert res.exit_code == 0, res.output
+  assert ct.LAUNCHES["ccl_paint"]
+  assert numpy_engine.get_engine() == "auto"
+  numpy_engine.set_engine("numpy")
+  assert (tmp_path / "v.ckl").read_bytes() == numpy_engine.compress(got)
+
+
+def test_trace_names_the_launched_kernels(dev, numpy_engine, tmp_path):
+  """trace() on the card: the exported trace names every kernel that
+  LAUNCHES counted for a cutout, and the annotate span."""
+  from crackle_tpu_torch.utils import profiling
+  vol = random_volume((96, 64, 6), 3, 5, 60)
+  binary = numpy_engine.compress(vol)
+  numpy_engine.set_engine("torch", device=dev)
+  try:
+    arr = ct.CrackleArray(binary)
+    arr[:, :, 0:2]
+    cut = profiling.annotate("cutout")(lambda: arr[:, :, 1:5])
+    ct.reset_launches()
+    with profiling.trace(str(tmp_path)):
+      got = cut()
+    launched = [k for k, v in ct.LAUNCHES.items() if v]
+  finally:
+    numpy_engine.set_engine("numpy")
+  np.testing.assert_array_equal(got, vol[:, :, 1:5])
+  names = _kernel_names_in(str(tmp_path))
+  assert "cutout" in names
+  assert launched
+  from test_torch_util import device_kernels
+  DEVICE_KERNELS = device_kernels()
+  for k in launched:
+    assert any(f"{d}_kernel" in n for d in DEVICE_KERNELS[k]
+               for n in names), k
