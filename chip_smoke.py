@@ -23,7 +23,8 @@ Phases, one line each (phases 8 to 19 several):
      plain and library-call times with CUDA events at the 512^3 slice
      shapes, once the children have ended (each kernel and the library
      call over 200 launches in one CUDA graph, and over 10 eager
-     launches beside it);
+     launches beside it); paint_vcg and plant also at B = 1 (the first
+     slice), checked bit-equal to their plain versions there;
   4. the flat main path: upload_stream of the 512^3 volume and
      decode_window(0, 512, check_crcs=True), labels bit-equal to the
      host decoder, with no call of torch.sort or replay.sorted_keys;
@@ -36,8 +37,10 @@ Phases, one line each (phases 8 to 19 several):
      whole-stage bound beside the sort-based design's key sort, each CCL pass's device time
      at B = 512 (torch.profiler, by kernel name, over one ccl_paint and
      one ccl_min call) at the default tile and at smaller ones, the
-     flat kernels' shares of their bounds at B = 512, and the card's
-     busy share over three 512^3 decodes (torch.profiler);
+     flat kernels' shares of their bounds at B = 512, paint_vcg and
+     plant (K = 0, 1 and 2) on all 512 slices bit-equal to their plain
+     versions, and the card's busy share over three 512^3 decodes
+     (torch.profiler);
   9. the compact-cancel path (replay.CANCEL_COMPACT): upload_stream and
      decode_window(0, 512, check_crcs=True) of the 512^3 volume against
      the oracle, with no call of torch.sort or replay.sorted_keys, its
@@ -861,6 +864,65 @@ def share_line(name, ms, io, batch):
           f"B={batch})")
 
 
+def b1_rows(ids, sx, sy, perm, L, roots, T, errs):
+  """name -> (ms, plain ms, bound ms, bound by, bytes, ops, 10 eager
+  launches' ms) of paint_vcg and plant (K = T's) at B = 1, each first
+  held bit-equal to its plain version (errs takes the difference)."""
+  errs["paint_vcg"] = max(errs["paint_vcg"], require_equal(
+    "B=1 vcg", replay.paint_vcg(ids, sx, sy, perm),
+    replay.paint_vcg_plain(ids, sx, sy, perm)))
+  for got, want, what in zip(ccl.plant(L, roots, T),
+                             ccl.plant_plain(L, roots, T),
+                             ("cc", "painted")):
+    errs["plant"] = max(errs["plant"], require_equal(f"B=1 plant {what}",
+                                                     got, want))
+  n = sx * sy
+  runs = {
+    "paint_vcg": (lambda: replay.paint_vcg(ids, sx, sy, perm),
+                  lambda: replay.paint_vcg_plain(ids, sx, sy, perm),
+                  (nbytes_of(ids) + n * 4, ids.numel() + n)),
+    "plant": (lambda: ccl.plant(L, roots, T),
+              lambda: ccl.plant_plain(L, roots, T),
+              (nbytes_of(L, roots, T) + n * 4 * (1 + T.shape[1]), n)),
+  }
+  out = {}
+  for name, (kern, plain, io) in runs.items():
+    nb, nops, bms, by = bound(name, *io)
+    ms10 = cuda_ms(kern, 10)
+    out[name] = (graph_ms(kern, 200), cuda_ms(plain, 2), bms, by, nb, nops,
+                 ms10)
+  return out
+
+
+def path_batch_equal(s, errs):
+  """paint_vcg and plant (K = 0, 1, 2) on every slice of the flat
+  stream (the path batch) against their plain versions."""
+  h = s.head
+  ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
+  ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
+  del ev, cls, dr
+  vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
+  errs["paint_vcg"] = max(errs["paint_vcg"], require_equal(
+    "B=512 vcg", vcg, replay.paint_vcg_plain(ids, h.sx, h.sy,
+                                             s.permissible)))
+  del ids
+  L, tgt = ccl.ccl_min(vcg)
+  del vcg
+  roots, _ = ccl.roots_from_tgt(tgt, ccl._pow2_cap(int(
+    (tgt.amax((1, 2)) + 1).max())))
+  del tgt
+  rng = np.random.RandomState(512)
+  for K in (0, 1, 2):
+    T = plain_table(rng, h.sz, K, roots.shape[1], s.device) if K else None
+    for got, want, what in zip(ccl.plant(L, roots, T),
+                               ccl.plant_plain(L, roots, T),
+                               ("cc", "painted")):
+      errs["plant"] = max(errs["plant"], require_equal(
+        f"B=512 plant K={K} {what}", got, want))
+  return (f"paint_vcg and plant (K = 0, 1, 2; cap_n {roots.shape[1]}) on "
+          f"all {h.sz} slices bit-equal to their plain versions")
+
+
 def full_io(s):
   """kernel_io of the whole flat stream (B = sz): each stage's inputs
   and outputs made once by the kernels, and only their sizes kept."""
@@ -1099,6 +1161,10 @@ def run(dev, card, kind, oracles, paths, t_or):
   bounds = {name: bound(name, *io) for name, io in kernel_io(
     t, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp, evp,
     drp).items()}
+  # paint_vcg and plant at B = 1 (the first slice: a CLI -T, a remote
+  # read), checked against their plain versions, then timed as above
+  one = b1_rows(idsp[:1].contiguous(), sx, sy, perm, Lp[:1].contiguous(),
+                roots[:1].contiguous(), Tt[:1].contiguous(), errs)
   del sub, args, t, cp, idsp, vp, Lp, roots, ccp, densep, tablesp
   del evp, drp
   del dest, tgt, empty
@@ -1198,12 +1264,19 @@ def run(dev, card, kind, oracles, paths, t_or):
              f"{100 * bms / km:.1f}% of the bound) (B=32 slices of 512^3; "
              f"200 launches in one CUDA graph; 10 eager launches "
              f"{eager[name]:.4f} ms)")
+  for name, (km, pm, bms, by, nb, nops, ms10) in one.items():
+    say(8, f"{name}: kernel {km:.4f} ms, plain {pm:.4f} ms, library call "
+           f"none, bound {bms * 1e3:.2f} us by {by} ({nb} bytes, {nops} "
+           f"ops; {100 * bms / km:.1f}% of the bound) (B=1, the first slice "
+           f"of 512^3; 200 launches in one CUDA graph; 10 eager launches "
+           f"{ms10:.4f} ms)")
   km, lib = times["compact_closes"][0], library["compact_closes"]
   say(8, f"compact_closes {km:.4f} ms against its library call (scatter_)"
          f" {lib:.4f} ms at B=32, 200 launches in one CUDA graph each "
          f"({'no slower' if km <= lib else 'SLOWER'}); 10 eager launches "
          f"{eager['compact_closes']:.4f} and {eager['scatter_']:.4f} ms")
   io512 = full_io(stream)
+  say(8, path_batch_equal(stream, errs))
   for name in ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"):
     full[name] = (512, stages[name], bound(name, *io512[name])[2])
     say(8, "512^3 stage " + share_line(name, stages[name], io512[name], 512))
@@ -1418,6 +1491,9 @@ def run(dev, card, kind, oracles, paths, t_or):
       row["also_replaces"] = also
     if name == "ccl_paint":
       row.update(k0)
+    if name in one:
+      km, pm, bms, *_ = one[name]
+      row.update({"b1_ms": km, "b1_plain_ms": pm, "b1_bound_ms": bms})
     row["sharded_launches"] = {path: n[name] for path, n in sharded.items()
                                if n.get(name)}
     row["operations_launches"] = launches["operations"][name]
@@ -1437,7 +1513,7 @@ def phase_1024(dev, paths, errs):
   analytics against the numpy statistics."""
   flat, pins, npy, npz = paths
   want = np.load(npy)
-  P = replay.paint_band_px(1024, 1024)
+  bands, P = replay.paint_grid(8, 1024, 1024, _build.sm_count(dev))
   for tag, binary in (("flat", read(flat)), ("pins", read(pins))):
     s = ct.upload_stream(binary, dev)
     if s is None:
@@ -1457,7 +1533,7 @@ def phase_1024(dev, paths, errs):
     say(13, f"1024^2 x 8 {tag} ({len(binary)} bytes, CAP "
             f"{s.packed.shape[1] * 4}): decode_window(0, 8, check_crcs=True) "
             f"bit-equal to the host decoder, the paint in "
-            f"{-(-1024 * 1024 // P)} bands of {P} pixels bit-equal to its "
+            f"{bands} bands of {P} pixels a slice bit-equal to its "
             f"plain version; launches {dict(ct.LAUNCHES)}")
   orc = np.load(npz)
   ct.reset_launches()
@@ -1647,7 +1723,8 @@ def phase_long(dev, paths, errs):
   say(15, f"kernels bit-equal to their plain versions on the first 4 "
           f"slices: {k} pieces ({tuple(t['packed'].shape)} packed bytes), "
           f"merged rows {tuple(rows.shape)}, paint_vcg in "
-          f"{-(-sx * sy // replay.paint_band_px(sx, sy))} bands, ccl_paint "
+          f"{replay.paint_grid(4, sx, sy, _build.sm_count(dev))[0]} bands a "
+          f"slice, ccl_paint "
           f"on (4, {sy}, {sx}); cc passes the stored CRCs")
   del t, ev, cls, dr, evp, clsp, drp, ids, rows, v, cc, N, ccp, Np
 
@@ -3117,7 +3194,8 @@ def long_stage_line(binary, head, split, piece_z, cc, uniq, cum, keys, dev):
       f"{k} {v:.3f}" for k, v in dev_ms.items())
     + f"; labels to the host {sum(copy) / len(copy):.3f} ms (host clock); "
       f"merged rows {tuple(rows.shape)}, paint in "
-      f"{-(-sx * sy // replay.paint_band_px(sx, sy))} bands")
+      f"{replay.paint_grid(sz, sx, sy, _build.sm_count(dev))[0]} bands a "
+      f"slice")
 
 
 def check_analytics(orc, vc, cen, bb):
@@ -3186,11 +3264,11 @@ def replay_stage_line(s, stages):
 DEVICE_KERNELS = {
   "replay_keys": ("replay_keys",),
   "replay_positions": ("replay_positions",),
-  "paint_vcg": ("paint_vcg", "paint_vcg_bands"),
+  "paint_vcg": ("paint_vcg",),
   "ccl_paint": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank",
                 "ccl_fill"),
   "ccl_min": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank"),
-  "plant": ("plant",),
+  "plant": ("plant_map", "plant"),
   "slice_stats": ("stats_init", "slice_stats"),
   "cancel_sums": ("cancel_sums",),
   "compact_closes": ("compact_closes",),

@@ -56,12 +56,15 @@
 // plant replaces ccl_pallas._plant_kernel: cc[p] = k and painted[ch, p]
 // = T[ch, k] where roots[k] == L[p], else 0. The TPU walked 64-row
 // stripes and bounded each stripe's rank window by a binary search of
-// the stripe's min/max id in SMEM. Here a block stages its slice's
-// roots and T (at most 3 x 2048 ints, 24 KB) in shared memory and every
-// pixel does its own branchless lower_bound there, so no window is
-// needed. plant is bound by device memory: it reads L once and writes
-// (1 + K) ints a pixel; its search is log2(cap_n) shared-memory loads a
-// pixel, and many blocks per slice keep every SM busy.
+// the stripe's min/max id in SMEM. Here no pixel searches: plant_map
+// writes each root's rank into a dense root -> k map of the slice
+// (cap_n stores), and plant_kernel reads the map at L[p], one gather a
+// pixel, and checks the entry against the roots, so the map needs no
+// fill (an entry no root wrote may hold anything, and no root equals
+// its id). Nothing is staged in shared memory, so cap_n has no limit
+// and no block reloads a table; roots, T and the few map lines a slice
+// reads stay in L1 and L2. plant is bound by device memory: it reads L
+// once and writes (1 + K) ints a pixel, 16 bytes a load and a store.
 #include "common.cuh"
 
 using namespace ckl;
@@ -71,7 +74,6 @@ namespace {
 constexpr int CCL_MAX_THREADS = 1024;
 constexpr int MERGE_THREADS = 256;
 constexpr int PLANT_THREADS = 256;
-constexpr int PLANT_PIX = 4096;  // pixels a plant block covers
 
 // Threads of a tiled block: four pixels each, at least a warp.
 inline int tile_threads(int tile) {
@@ -413,43 +415,71 @@ int converge_launch(const int* vcg, int* L, int B, int sx, int n, int tile,
   return (int)cudaGetLastError();
 }
 
-// First i in [0, len) with s[i] >= x, or len; s sorted, len >= 1.
-__device__ __forceinline__ int lower_bound(const int* s, int len, int x) {
-  int base = 0;
-  while (len > 1) {
-    const int half = len >> 1;
-    base = s[base + half] < x ? base + half : base;
-    len -= half;
-  }
-  return base + (s[base] < x);
+// The dense map of slice blockIdx.y: map[roots[k]] = k for each root in
+// [0, n), the first k of a repeated root (as a lower bound finds it in
+// the sorted roots). grid (ceil(cap_n / PLANT_THREADS), B).
+__global__ void __launch_bounds__(PLANT_THREADS)
+plant_map_kernel(const int* __restrict__ roots, int* __restrict__ map, int n,
+                 int cap_n) {
+  const int k = blockIdx.x * PLANT_THREADS + threadIdx.x;
+  if (k >= cap_n) return;
+  const int* r = roots + (size_t)blockIdx.y * cap_n;
+  const int v = r[k];
+  if ((unsigned)v < (unsigned)n && (k == 0 || r[k - 1] != v))
+    map[(size_t)blockIdx.y * n + v] = k;
 }
 
-// grid (ceil(n / PLANT_PIX), B); dynamic shared (1 + K) * cap_n ints
-__global__ void plant_kernel(const int* __restrict__ L,
-                             const int* __restrict__ roots,
-                             const int* __restrict__ T, int* __restrict__ cc,
-                             int* __restrict__ painted, int n, int K,
-                             int cap_n) {
-  extern __shared__ int tables[];
-  int* r = tables;
-  int* t = tables + cap_n;
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < cap_n; i += blockDim.x)
-    r[i] = roots[(size_t)b * cap_n + i];
-  for (int i = threadIdx.x; i < K * cap_n; i += blockDim.x)
-    t[i] = T[(size_t)b * K * cap_n + i];
-  __syncthreads();
+// k with r[k] == l (the map's entry, held against the roots), or -1
+// where l is outside [0, n) or no root
+__device__ __forceinline__ int plant_find(int l, const int* m, const int* r,
+                                          int n, int cap_n) {
+  if ((unsigned)l >= (unsigned)n) return -1;
+  const int k = __ldg(m + l);
+  return (unsigned)k < (unsigned)cap_n && __ldg(r + k) == l ? k : -1;
+}
 
-  const int p0 = blockIdx.x * PLANT_PIX;
-  const int p1 = min(p0 + PLANT_PIX, n);
-  for (int p = p0 + threadIdx.x; p < p1; p += blockDim.x) {
-    const int l = L[(size_t)b * n + p];
-    const int k = lower_bound(r, cap_n, l);
-    // roots are padded with n, which no pixel's id may match
-    const bool hit = l >= 0 && l < n && k < cap_n && r[k] == l;
-    cc[(size_t)b * n + p] = hit ? k : 0;
+// grid (ceil(n / span), B): block x paints pixels [x * span, x * span +
+// span) of slice blockIdx.y, four a thread at a time where vec (n and span
+// multiples of 4, L 16-byte aligned), else one.
+template <int K>
+__global__ void __launch_bounds__(PLANT_THREADS)
+plant_kernel(const int* __restrict__ L, const int* __restrict__ roots,
+             const int* __restrict__ T, const int* __restrict__ map,
+             int* __restrict__ cc, int* __restrict__ painted, int n,
+             int cap_n, int span, int vec) {
+  const int b = blockIdx.y;
+  const size_t row = (size_t)b * n;
+  const int* r = roots + (size_t)b * cap_n;
+  const int* m = map + row;
+  const int p0 = (int)min((long long)blockIdx.x * span, (long long)n);
+  const int p1 = (int)min((long long)p0 + span, (long long)n);
+  auto table = [&](int ch) { return T + ((size_t)b * K + ch) * cap_n; };
+  auto plane = [&](int ch) { return painted + ((size_t)b * K + ch) * n; };
+  if (vec) {
+    for (int p = p0 + 4 * threadIdx.x; p < p1; p += 4 * PLANT_THREADS) {
+      const int4 l = __ldg(reinterpret_cast<const int4*>(L + row + p));
+      const int k0 = plant_find(l.x, m, r, n, cap_n);
+      const int k1 = plant_find(l.y, m, r, n, cap_n);
+      const int k2 = plant_find(l.z, m, r, n, cap_n);
+      const int k3 = plant_find(l.w, m, r, n, cap_n);
+      *reinterpret_cast<int4*>(cc + row + p) =
+          make_int4(max(k0, 0), max(k1, 0), max(k2, 0), max(k3, 0));
+#pragma unroll
+      for (int ch = 0; ch < K; ++ch) {
+        const int* t = table(ch);
+        *reinterpret_cast<int4*>(plane(ch) + p) = make_int4(
+            k0 >= 0 ? __ldg(t + k0) : 0, k1 >= 0 ? __ldg(t + k1) : 0,
+            k2 >= 0 ? __ldg(t + k2) : 0, k3 >= 0 ? __ldg(t + k3) : 0);
+      }
+    }
+    return;
+  }
+  for (int p = p0 + threadIdx.x; p < p1; p += PLANT_THREADS) {
+    const int k = plant_find(__ldg(L + row + p), m, r, n, cap_n);
+    cc[row + p] = max(k, 0);
+#pragma unroll
     for (int ch = 0; ch < K; ++ch)
-      painted[((size_t)b * K + ch) * n + p] = hit ? t[ch * cap_n + k] : 0;
+      plane(ch)[p] = k >= 0 ? __ldg(table(ch) + k) : 0;
   }
 }
 
@@ -495,13 +525,37 @@ extern "C" int ccl_min_launch(const void* vcg, void* L, void* counts,
   return (int)cudaGetLastError();
 }
 
+// map ((B, n) ints) is scratch; only its entries at the roots are written.
 extern "C" int plant_launch(const void* L, const void* roots, const void* T,
-                            void* cc, void* painted, int B, int n, int K,
-                            int cap_n, void* stream) {
-  const dim3 grid((n + PLANT_PIX - 1) / PLANT_PIX, B);
-  const size_t smem = (size_t)(1 + K) * cap_n * sizeof(int);
-  plant_kernel<<<grid, PLANT_THREADS, smem, (cudaStream_t)stream>>>(
-      (const int*)L, (const int*)roots, (const int*)T, (int*)cc,
-      (int*)painted, n, K, cap_n);
+                            void* map, void* cc, void* painted, int B, int n,
+                            int K, int cap_n, int span, int vec,
+                            void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  plant_map_kernel<<<dim3((cap_n + PLANT_THREADS - 1) / PLANT_THREADS, B),
+                     PLANT_THREADS, 0, s>>>((const int*)roots, (int*)map, n,
+                                            cap_n);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  const dim3 grid((unsigned)(((long long)n + span - 1) / span), B);
+  const int* l = (const int*)L;
+  const int* r = (const int*)roots;
+  const int* t = (const int*)T;
+  const int* m = (const int*)map;
+  switch (K) {
+    case 0:
+      plant_kernel<0><<<grid, PLANT_THREADS, 0, s>>>(
+          l, r, t, m, (int*)cc, (int*)painted, n, cap_n, span, vec);
+      break;
+    case 1:
+      plant_kernel<1><<<grid, PLANT_THREADS, 0, s>>>(
+          l, r, t, m, (int*)cc, (int*)painted, n, cap_n, span, vec);
+      break;
+    case 2:
+      plant_kernel<2><<<grid, PLANT_THREADS, 0, s>>>(
+          l, r, t, m, (int*)cc, (int*)painted, n, cap_n, span, vec);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -389,53 +389,77 @@ replay_positions_kernel(const int* __restrict__ ev, const int* __restrict__ cls,
 // Kernel 3: paint_vcg
 // ---------------------------------------------------------------------------
 
-// Replaces replay_pallas._paint_vcg_kernel and
-// replay_big._paint_vcg_big: unsorted edge ids -> V/H presence bits in
-// shared memory (atomicOr; 64 KB for a 512^2 slice) -> the 4-bit VCG
-// V[y,x+1] | V[y,x]<<1 | H[y+1,x]<<2 | H[y,x]<<3, complemented for
-// impermissible streams. No sort and no window tables are needed.
-__global__ void paint_vcg_kernel(const int* __restrict__ ids,
-                                 int* __restrict__ vcg, int CAP, int sx,
-                                 int sy, int permissible) {
-  extern __shared__ unsigned bits[];
-  const int b = blockIdx.x;
-  const int T = blockDim.x;
-  const int sxe = sx + 1;
-  const int NV = sy * sxe;
-  const int NB = NV + (sy + 1) * sx;
-  const int nwords = (NB + 31) >> 5;
-  for (int w = threadIdx.x; w < nwords; w += T) bits[w] = 0;
-  __syncthreads();
-  const int* id = ids + (size_t)b * CAP;
-  for (int i = threadIdx.x; i < CAP; i += T) {
-    const int e = id[i];
-    if (e >= 0 && e < NB) atomicOr(&bits[e >> 5], 1u << (e & 31));
+constexpr int PAINT_THREADS = 512;
+
+// The bits one thread sets in a shared bitmap, merged while they fall in
+// one word: ids that follow each other along a chain mostly do, so one
+// atomicOr stands for several.
+struct PendingOr {
+  int w = -1;
+  unsigned m = 0;
+  __device__ __forceinline__ void add(unsigned* a, unsigned k) {
+    const int wi = (int)(k >> 5);
+    const unsigned bit = 1u << (k & 31);
+    if (wi == w) {
+      m |= bit;
+      return;
+    }
+    if (m) atomicOr(&a[w], m);
+    w = wi;
+    m = bit;
   }
-  __syncthreads();
-  const int n = sx * sy;
-  const int comp = permissible ? 0 : 0b1111;
-  int* out = vcg + (size_t)b * n;
-  for (int p = threadIdx.x; p < n; p += T) {
-    const int y = p / sx;
-    const int x = p - y * sx;
-    auto bit = [&](int k) { return (int)((bits[k >> 5] >> (k & 31)) & 1u); };
-    const int v = bit(y * sxe + x + 1) | (bit(y * sxe + x) << 1) |
-                  (bit(NV + (y + 1) * sx + x) << 2) | (bit(NV + y * sx + x) << 3);
-    out[p] = v ^ comp;
+  __device__ __forceinline__ void flush(unsigned* a) {
+    if (m) atomicOr(&a[w], m);
   }
+};
+
+// The 32 bits of a from bit k on; a holds the word after k's.
+__device__ __forceinline__ unsigned bits_at(const unsigned* a, int k) {
+  const int i = k >> 5;
+  return __funnelshift_r(a[i], a[i + 1], k & 31);
 }
 
-// The same paint for a slice whose edge bitmap passes one block's
-// shared memory (from about 930K pixels): a (bands, B) grid, each block
-// painting P raster pixels [p0, p1). It keeps only the bits its pixels
-// read, in three ranges: the V ids [v0, v1) of its rows' span, and the
-// H ids of its pixels' top edges [NV + p0, NV + p1) and bottom edges
-// [NV + p0 + sx, NV + p1 + sx), so bands may cut rows and any width
-// fits. Every block reads all of the slice's ids (twice the id bytes
-// at two bands, against the bitmap's 3 bits a pixel).
-__global__ void paint_vcg_bands_kernel(const int* __restrict__ ids,
-                                       int* __restrict__ vcg, int CAP, int sx,
-                                       int sy, int permissible, int P) {
+// The 4-bit VCG of pixel j of a run of a row whose V bits start at bit 0
+// of vw (pixel j reads bits j and j + 1) and whose top and bottom H bits
+// start at bit 0 of ht and hb.
+__device__ __forceinline__ int vcg_cell(unsigned vw, unsigned ht,
+                                        unsigned hb, int j) {
+  return (int)(((vw >> (j + 1)) & 1u) | (((vw >> j) & 1u) << 1) |
+               (((hb >> j) & 1u) << 2) | (((ht >> j) & 1u) << 3));
+}
+
+// Replaces replay_pallas._paint_vcg_kernel and replay_big._paint_vcg_big:
+// unsorted edge ids -> V/H presence bits in shared memory -> the 4-bit VCG
+// V[y,x+1] | V[y,x]<<1 | H[y+1,x]<<2 | H[y,x]<<3, complemented for
+// impermissible streams. No sort and no window tables are needed.
+//
+// What bounds it on this card: bytes, the ids read once (4 a codepoint)
+// and the VCG written once (4 a pixel, eight times the ids at 512^2). The
+// design, for every shape and batch: a (bands, B) grid of blocks, each
+// painting the raster pixels [p0, p1) of one band of its slice, with
+// enough bands that bands x B fills the card (replay.paint_grid), so that
+// one slice (a CLI -T or a remote read) no longer runs on one SM. A band
+// keeps only the bits its pixels read: the V ids [v0, v1) of its rows'
+// span, and the H ids of its pixels' top and bottom edges, one range
+// [NV + p0, NV + p1 + sx) where a row fits the band, else two of p1 - p0
+// (top and bottom), so bands may cut rows and any width fits. Each block
+// reads all of its slice's ids, 16 bytes a load (the bands of a slice run
+// side by side, so all but the first read mostly hit L2); a warp skips
+// the range checks of 128 ids whose V and H spans miss its band (on an
+// H100 at B = 32 the replicated checks held the kernel to 45% of its
+// bound; with the skip it reaches 52%), and merges the bits of a word
+// before its atomicOr. With one band a slice (B = 512 on an H100) no
+// warp skips and the grid is B blocks. It paints groups of 4 pixels with
+// one 16-byte store each: within a row a group's V bits are consecutive,
+// so one funnel shift reads its 5 V bits and one each its 4 top and 4
+// bottom H bits. A group's (y, x) steps by a fixed stride with one
+// compare, so no pixel divides; a group that wraps a row (or several,
+// sx < 4) walks its pixels one by one, and at most 3 pixels at each end of
+// a band that is not 16-byte aligned are written alone.
+__global__ void __launch_bounds__(PAINT_THREADS)
+paint_vcg_kernel(const int* __restrict__ ids, int* __restrict__ vcg, int CAP,
+                 int sx, int sy, int comp, int P, int wv, int wh, int split_h,
+                 int vec_ids) {
   extern __shared__ unsigned bits[];
   const int b = blockIdx.y;
   const int T = blockDim.x;
@@ -444,36 +468,142 @@ __global__ void paint_vcg_bands_kernel(const int* __restrict__ ids,
   const int n = sx * sy;
   const int p0 = blockIdx.x * P;
   const int p1 = min(p0 + P, n);
-  const int v0 = (p0 / sx) * sxe + p0 % sx;
-  const int v1 = ((p1 - 1) / sx) * sxe + (p1 - 1) % sx + 2;
-  const int wv = (P + (P - 1) / sx + 2 + 31) >> 5;  // as replay._band_words
-  const int wh = (P + 31) >> 5;
+  const int y0 = p0 / sx, yl = (p1 - 1) / sx;
+  const int v0 = y0 * sxe + (p0 - y0 * sx);
+  const unsigned nv = (unsigned)(yl * sxe + (p1 - 1 - yl * sx) + 2 - v0);
+  const unsigned np = (unsigned)(p1 - p0);
+  // the H range (the top edges alone where split), and the bottom edges'
+  const int h0 = NV + p0, hb0 = NV + p0 + sx;
+  const unsigned nh = split_h ? np : np + sx;
   unsigned* V = bits;
-  unsigned* Ht = bits + wv;
-  unsigned* Hb = Ht + wh;
-  for (int w = threadIdx.x; w < wv + 2 * wh; w += T) bits[w] = 0;
+  unsigned* H = bits + wv;
+  unsigned* Hb = split_h ? H + wh : H;
+  const int hoff = split_h ? 0 : sx;  // pixel q's bottom edge: Hb bit q + hoff
+  const int words = wv + (split_h ? 2 : 1) * wh;
+  for (int w = threadIdx.x; w < words; w += T) bits[w] = 0;
   __syncthreads();
-  const int* id = ids + (size_t)b * CAP;
-  const int h0 = NV + p0, h1 = NV + p1;
-  for (int i = threadIdx.x; i < CAP; i += T) {
-    const int e = id[i];
-    if (e >= v0 && e < v1) atomicOr(&V[(e - v0) >> 5], 1u << ((e - v0) & 31));
-    if (e >= h0 && e < h1) atomicOr(&Ht[(e - h0) >> 5], 1u << ((e - h0) & 31));
-    if (e >= h0 + sx && e < h1 + sx)
-      atomicOr(&Hb[(e - h0 - sx) >> 5], 1u << ((e - h0 - sx) & 31));
-  }
-  __syncthreads();
-  const int comp = permissible ? 0 : 0b1111;
-  int* out = vcg + (size_t)b * n;
-  auto bit = [](const unsigned* a, int k) {
-    return (int)((a[k >> 5] >> (k & 31)) & 1u);
+
+  // 1: the band's bits. Unsigned differences put every id outside a
+  // range (-1 too) past its length.
+  PendingOr pv, ph, pb;
+  auto put = [&](int e) {
+    const unsigned dv = (unsigned)e - (unsigned)v0;
+    if (dv < nv) pv.add(V, dv);
+    const unsigned dh = (unsigned)e - (unsigned)h0;
+    if (dh < nh) ph.add(H, dh);
+    const unsigned db = (unsigned)e - (unsigned)hb0;
+    if (split_h && db < np) pb.add(Hb, db);
   };
-  for (int p = p0 + threadIdx.x; p < p1; p += T) {
+  const int* id = ids + (size_t)b * CAP;
+  const int4* id4 = reinterpret_cast<const int4*>(id);
+  const int n4 = CAP >> 2;
+  if (vec_ids && gridDim.x == 1) {  // the band is the slice: every id meets it
+    for (int i = threadIdx.x; i < n4; i += T) {
+      const int4 q = __ldg(id4 + i);
+      put(q.x);
+      put(q.y);
+      put(q.z);
+      put(q.w);
+    }
+  } else if (vec_ids) {  // CAP % 4 == 0 and ids 16-byte aligned
+    // A warp takes 128 consecutive ids (a stretch of a chain, so a small
+    // patch of the slice), reduces their V and H spans with one redux
+    // each, and puts them only where a span meets the band's: most
+    // stretches miss most bands, so a band's scan costs a few
+    // instructions an id, not the range checks.
+    const unsigned NVu = (unsigned)NV, NBu = (unsigned)(NV + (sy + 1) * sx);
+    const unsigned he = (unsigned)(NV + p1 + sx);  // past the H ranges' hull
+    const int lane = threadIdx.x & 31;
+    for (int w = threadIdx.x - lane; w < n4; w += T) {  // uniform in a warp
+      const int i = w + lane;
+      const int4 q = i < n4 ? __ldg(id4 + i) : make_int4(-1, -1, -1, -1);
+      unsigned vlo = ~0u, vhi = 0, hlo = ~0u, hhi = 0;
+      auto see = [&](int e) {
+        const unsigned u = (unsigned)e;
+        if (u < NVu) {
+          vlo = min(vlo, u);
+          vhi = max(vhi, u);
+        } else if (u < NBu) {
+          hlo = min(hlo, u);
+          hhi = max(hhi, u);
+        }
+      };
+      see(q.x);
+      see(q.y);
+      see(q.z);
+      see(q.w);
+      vlo = __reduce_min_sync(FULL_MASK, vlo);
+      vhi = __reduce_max_sync(FULL_MASK, vhi);
+      hlo = __reduce_min_sync(FULL_MASK, hlo);
+      hhi = __reduce_max_sync(FULL_MASK, hhi);
+      if ((vlo <= vhi && vhi >= (unsigned)v0 && vlo < (unsigned)v0 + nv) ||
+          (hlo <= hhi && hhi >= (unsigned)h0 && hlo < he)) {
+        put(q.x);
+        put(q.y);
+        put(q.z);
+        put(q.w);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < CAP; i += T) put(__ldg(id + i));
+  }
+  pv.flush(V);
+  ph.flush(H);
+  pb.flush(Hb);
+  __syncthreads();
+
+  // 2: the paint
+  int* out = vcg + (size_t)b * n;
+  auto one = [&](int p, int y, int x) {
+    const int q = p - p0;
+    return vcg_cell(bits_at(V, y * sxe + x - v0), bits_at(H, q),
+                    bits_at(Hb, q + hoff), 0) ^ comp;
+  };
+  const int mis = (int)(((size_t)b * n + p0) & 3);
+  const int lo = min(p0 + ((4 - mis) & 3), p1);
+  const int hi = lo + ((p1 - lo) & ~3);
+  const int nhead = lo - p0;
+  if (threadIdx.x < nhead + (p1 - hi)) {
+    const int p = threadIdx.x < nhead ? p0 + threadIdx.x
+                                      : hi + threadIdx.x - nhead;
     const int y = p / sx;
-    const int v = y * sxe + p - y * sx - v0;
-    const int v4 = bit(V, v + 1) | (bit(V, v) << 1) | (bit(Hb, p - p0) << 2) |
-                   (bit(Ht, p - p0) << 3);
-    out[p] = v4 ^ comp;
+    out[p] = one(p, y, p - y * sx);
+  }
+  const int S = 4 * T;
+  int p = lo + 4 * threadIdx.x;
+  if (p >= hi) return;
+  int y = p / sx, x = p - y * sx;
+  const int dy = S / sx, dx = S - dy * sx;
+  for (; p < hi; p += S) {
+    int4 o;
+    if (x + 3 < sx) {
+      const int q = p - p0;
+      const unsigned vw = bits_at(V, y * sxe + x - v0);
+      const unsigned ht = bits_at(H, q), hb = bits_at(Hb, q + hoff);
+      o = make_int4(vcg_cell(vw, ht, hb, 0) ^ comp,
+                    vcg_cell(vw, ht, hb, 1) ^ comp,
+                    vcg_cell(vw, ht, hb, 2) ^ comp,
+                    vcg_cell(vw, ht, hb, 3) ^ comp);
+    } else {
+      int c[4];
+      int yy = y, xx = x;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        c[j] = one(p + j, yy, xx);
+        if (++xx == sx) {
+          xx = 0;
+          ++yy;
+        }
+      }
+      o = make_int4(c[0], c[1], c[2], c[3]);
+    }
+    *reinterpret_cast<int4*>(out + p) = o;
+    x += dx;
+    y += dy;
+    if (x >= sx) {
+      x -= sx;
+      ++y;
+    }
   }
 }
 
@@ -508,29 +638,16 @@ int replay_positions_launch(const void* ev, const void* cls,
 }
 
 int paint_vcg_launch(const void* ids, void* vcg, int B, int CAP, int sx,
-                     int sy, int permissible, void* stream) {
-  const int NB = sy * (sx + 1) + (sy + 1) * sx;
-  const size_t smem = (size_t)((NB + 31) >> 5) * 4;
+                     int sy, int permissible, int P, int bands, int wv,
+                     int wh, int split_h, int vec_ids, void* stream) {
+  const size_t smem = (size_t)(wv + (split_h ? 2 : 1) * wh) * 4;
   cudaError_t err = cudaFuncSetAttribute(
       paint_vcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paint_vcg_kernel<<<B, 1024, smem, (cudaStream_t)stream>>>(
-      (const int*)ids, (int*)vcg, CAP, sx, sy, permissible);
-  return (int)cudaGetLastError();
-}
-
-int paint_vcg_bands_launch(const void* ids, void* vcg, int B, int CAP, int sx,
-                           int sy, int permissible, int P, int words,
-                           void* stream) {
-  const size_t smem = (size_t)words * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      paint_vcg_bands_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)sx * sy;
-  const dim3 grid((unsigned)((n + P - 1) / P), B);
-  paint_vcg_bands_kernel<<<grid, 1024, smem, (cudaStream_t)stream>>>(
-      (const int*)ids, (int*)vcg, CAP, sx, sy, permissible, P);
+  paint_vcg_kernel<<<dim3(bands, B), PAINT_THREADS, smem,
+                     (cudaStream_t)stream>>>(
+      (const int*)ids, (int*)vcg, CAP, sx, sy, permissible ? 0 : 0b1111, P,
+      wv, wh, split_h, vec_ids);
   return (int)cudaGetLastError();
 }
 

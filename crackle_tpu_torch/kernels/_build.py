@@ -46,18 +46,17 @@ _SIGNATURES = {
   # stride, warps, stream
   "replay_positions_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
-  # ids, vcg, B, CAP, sx, sy, permissible, stream
-  "paint_vcg_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
-  # ids, vcg, B, CAP, sx, sy, permissible, band pixels, band words,
-  # stream
-  "paint_vcg_bands_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+  # ids, vcg, B, CAP, sx, sy, permissible, band pixels, bands, V words,
+  # H words, split, vec_ids, stream
+  "paint_vcg_launch": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                       _P],
   # vcg, T, L, counts, cc, N, painted, B, sx, sy, K, cap_n, tile, stream
   "ccl_paint_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                        _P],
   # vcg, L, counts, tgt, B, sx, sy, tile, stream
   "ccl_min_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-  # L, roots, T, cc, painted, B, n, K, cap_n, stream
-  "plant_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+  # L, roots, T, map, cc, painted, B, n, K, cap_n, span, vec, stream
+  "plant_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
   # cc, out, B, sx, sy, cap_n, band_rows, stream
   "slice_stats_launch": [_P, _P, _I, _I, _I, _I, _I, _P],
   # ev, cls, drange, scratch, dense, B, CAP, budget, stride, warps,
@@ -132,6 +131,20 @@ def library():
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
   return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+  import torch
+  return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+  """Streaming multiprocessors of a CUDA device (the grids' fill)."""
+  import torch
+  d = torch.device(device)
+  return _sms(d.index if d.index is not None else
+              torch.cuda.current_device())
 
 
 def check(name: str, err: int):

@@ -17,6 +17,12 @@ from . import _build
 # largest per-slice paint table (ccl_pallas.PAINT_CAP_N)
 PAINT_CAP_N = 2048
 
+# blocks of the plant kernel wanted on each SM, and the fewest pixels a
+# block takes: a slice is cut into min(n / PLANT_MIN_SPAN, PLANT_FILL x
+# SMs / B) spans of pixels, one block each
+PLANT_FILL = 4
+PLANT_MIN_SPAN = 1024
+
 # consecutive raster pixels per tile of the CCL kernels: the shared-
 # memory forest of one block; a power of two in [32, 8192]. Tests shrink
 # it to cross tile seams.
@@ -220,19 +226,28 @@ def plant_plain(L, roots, T):
   return cc, torch.where(hit[:, None, :], got, 0)
 
 
+def plant_span(B: int, n: int, sms: int) -> int:
+  """Pixels of a block of the plant kernel (a multiple of 4) on a card
+  of `sms` SMs (PLANT_FILL, PLANT_MIN_SPAN)."""
+  blocks = max(1, min(-(-n // PLANT_MIN_SPAN),
+                      -(-PLANT_FILL * sms // max(B, 1))))
+  return 4 * -(-n // (4 * blocks))
+
+
 def plant(L, roots, T=None):
   """Kernel 6: the min-index image L (B, sy, sx) int32, sorted roots
   (B, cap_n) int32 padded with sy*sx, and value tables T (B, K, cap_n)
   int32 with K in {1, 2} (or None for K = 0) -> (cc (B, sy*sx) int32,
   painted (B, K, sy*sx) int32): where roots[k] == L[p], cc[p] = k and
-  painted[:, p] = T[:, k]; elsewhere 0 (ccl_pallas.plant_traced)."""
+  painted[:, p] = T[:, k]; elsewhere 0 (ccl_pallas.plant_traced). Any
+  cap_n: the kernel stages no table in shared memory."""
   if L.dtype != torch.int32 or L.dim() != 3 or not L.is_contiguous():
     raise ValueError(f"plant: want a contiguous (B, sy, sx) int32 L, got "
                      f"{tuple(L.shape)} {L.dtype}")
   B, sy, sx = L.shape
   if (roots.dtype != torch.int32 or roots.dim() != 2
       or roots.shape[0] != B or not roots.is_contiguous()
-      or not 1 <= roots.shape[1] <= PAINT_CAP_N):
+      or roots.shape[1] < 1):
     raise ValueError(f"plant: bad roots {tuple(roots.shape)} {roots.dtype}")
   cap_n = roots.shape[1]
   if T is not None and (
@@ -250,9 +265,15 @@ def plant(L, roots, T=None):
   cc = torch.empty((B, n), dtype=torch.int32, device=dev)
   painted = torch.empty((B, K, n), dtype=torch.int32, device=dev)
   if B and n:
+    # root -> k, written at the roots only: the kernel checks each
+    # entry it reads against the roots
+    rmap = torch.empty((B, n), dtype=torch.int32, device=dev)
+    span = plant_span(B, n, _build.sm_count(dev))
+    vec = n % 4 == 0 and L.data_ptr() % 16 == 0
     err = _build.library().plant_launch(
       L.data_ptr(), roots.data_ptr(), T.data_ptr() if K else None,
-      cc.data_ptr(), painted.data_ptr() if K else None, B, n, K, cap_n,
+      rmap.data_ptr(), cc.data_ptr(), painted.data_ptr() if K else None, B,
+      n, K, cap_n, span, int(vec),
       torch.cuda.current_stream(dev).cuda_stream)
     _build.check("plant", err)
     _build.LAUNCHES["plant"] += 1

@@ -523,10 +523,10 @@ def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
   or more than PAINT_CAP_N components in a slice of a flat stream (as
   the reference does; decode_window takes both), or pins labels stored
   wider than 32 bits.
-  Every slice size is taken otherwise: the paint goes to bands of pixels
-  past one block's shared memory (replay.paint_band_px), where the
-  reference's flat upload declines 1024^2 slices for a TPU VMEM
-  limit."""
+  Every slice size is taken otherwise: the paint runs in bands of
+  pixels, none past one block's shared memory (replay.paint_grid),
+  where the reference's flat upload declines 1024^2 slices for a TPU
+  VMEM limit."""
   dev = _device(device)
   head = _codec.header(binary)
   if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:

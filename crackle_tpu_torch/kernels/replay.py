@@ -33,6 +33,7 @@ decode._decode_vcg_batch, with scatter_add_/scatter_ where JAX used
 one-hot matmuls, and walk the stream in tiles of TILE codepoints with
 carries, so shrinking TILE exercises the carries on small streams.
 """
+import functools
 import os
 
 import torch
@@ -618,30 +619,68 @@ def replay_positions_compact(cls, tables, nodes, sx: int, sy: int):
 # shared memory one block of the paint kernel may take (H100: 227 KB)
 PAINT_SMEM_MAX = 232448
 
+# blocks of the paint kernel wanted on each SM: a (bands, B) grid takes
+# about as many bands as PAINT_FILL x the card's SMs hold B times (fewer,
+# not more, so that no SM takes one block more than the rest) ...
+PAINT_FILL = 2
+# ... but no more than one a PAINT_MIN_BAND pixels (a band reads all of
+# its slice's ids)
+PAINT_MIN_BAND = 1024
+
+
+def _band_layout(P: int, sx: int):
+  """(V words, H words, split) of the shared bitmap of a band of P
+  pixels of a slice sx wide, each range with a pad word after it (the
+  kernel reads a word past a bit's): its V ids (at most P + (P - 1) //
+  sx + 2 of them), and its H ids, one range of P + sx (top and bottom
+  edges together) where a row fits the band, else (split) two of P."""
+  wv = -(-(P + (P - 1) // sx + 2) // 32) + 1
+  if sx <= P:
+    return wv, -(-(P + sx) // 32) + 1, False
+  return wv, -(-P // 32) + 1, True
+
 
 def _band_words(P: int, sx: int) -> int:
-  """Shared-memory words of a band of P pixels: its V ids (at most P +
-  (P - 1) // sx + 2 of them) and its two H ranges (top and bottom
-  edges, P each)."""
-  return -(-(P + (P - 1) // sx + 2) // 32) + 2 * -(-P // 32)
+  """Shared-memory words of a band of P pixels (_band_layout)."""
+  wv, wh, split = _band_layout(P, sx)
+  return wv + (2 if split else 1) * wh
+
+
+@functools.lru_cache(maxsize=256)
+def _band_px(sx: int, sy: int, smem: int) -> int:
+  n = sx * sy
+  words = smem // 4
+  if _band_words(n, sx) <= words:
+    return n
+  lo, hi = 1, -(-n // 32)  # in units of 32 pixels: lo fits, hi does not
+  if _band_words(32, sx) > words:
+    raise ValueError(f"PAINT_SMEM_MAX {smem} holds no band")
+  while hi - lo > 1:
+    mid = (lo + hi) // 2
+    if _band_words(32 * mid, sx) <= words:
+      lo = mid
+    else:
+      hi = mid
+  return 32 * lo
 
 
 def paint_band_px(sx: int, sy: int) -> int:
-  """Pixels of a band of the paint kernel: the whole slice where its
-  edge bitmap fits PAINT_SMEM_MAX, else the most (a multiple of 32)
-  whose band bitmap fits."""
-  NB = sy * (sx + 1) + (sy + 1) * sx
-  if -(-NB // 32) * 4 <= PAINT_SMEM_MAX:
-    return sx * sy
-  words = PAINT_SMEM_MAX // 4
-  P = 32 * max(1, (words - 4) * sx // (3 * sx + 1))
-  while _band_words(P + 32, sx) <= words:
-    P += 32
-  while P > 32 and _band_words(P, sx) > words:
-    P -= 32
-  if _band_words(P, sx) > words:
-    raise ValueError(f"PAINT_SMEM_MAX {PAINT_SMEM_MAX} holds no band")
-  return P
+  """Pixels of the largest band of the paint kernel: the whole slice
+  where its bitmap fits PAINT_SMEM_MAX, else a multiple of 32 whose
+  band bitmap fits."""
+  return _band_px(sx, sy, PAINT_SMEM_MAX)
+
+
+def paint_grid(B: int, sx: int, sy: int, sms: int):
+  """(bands, band pixels P) of the paint kernel's (bands, B) grid on a
+  card of `sms` SMs: want = min(floor(PAINT_FILL x sms / B), ceil(n /
+  PAINT_MIN_BAND)) bands, at least 1, of equal size (rounded up to 32
+  pixels, so at least 32/33 of want), or more where a band would pass
+  paint_band_px. P is a multiple of 32 unless the band is the slice."""
+  n = sx * sy
+  want = max(1, min(PAINT_FILL * sms // max(B, 1), -(-n // PAINT_MIN_BAND)))
+  P = min(paint_band_px(sx, sy), 32 * -(-n // (32 * want)))
+  return -(-n // P), P
 
 
 def _paint_band(ids, sx: int, sy: int, p0: int, p1: int):
@@ -698,29 +737,23 @@ def paint_vcg_plain(ids, sx: int, sy: int, permissible: bool):
 
 def paint_vcg(ids, sx: int, sy: int, permissible: bool):
   """Kernel 3: edge ids (B, CAP) int32, in any order -> VCG (B, sy, sx)
-  int32 (complemented for impermissible streams). A slice whose edge
-  bitmap passes PAINT_SMEM_MAX is painted in bands of pixels, one block
-  each."""
+  int32 (complemented for impermissible streams), painted by a (bands,
+  B) grid (paint_grid)."""
   _check("paint_vcg", ids, torch.int32, 2)
   if ids.device.type != "cuda":
     return paint_vcg_plain(ids, sx, sy, permissible)
   if (sx + 2) * (sy + 2) >= 1 << 30:
     raise ValueError("paint_vcg: slice too large for int32 ids")
-  P = paint_band_px(sx, sy)
   B, CAP = ids.shape
   vcg = torch.empty((B, sy, sx), dtype=torch.int32, device=ids.device)
-  if B:
-    lib = _build.library()
-    stream = torch.cuda.current_stream(ids.device).cuda_stream
-    if P == sx * sy:
-      err = lib.paint_vcg_launch(
-        ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible),
-        stream)
-    else:
-      err = lib.paint_vcg_bands_launch(
-        ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible),
-        P, _band_words(P, sx), stream)
+  if B and sx * sy:
+    bands, P = paint_grid(B, sx, sy, _build.sm_count(ids.device))
+    wv, wh, split = _band_layout(P, sx)
+    vec_ids = CAP % 4 == 0 and ids.data_ptr() % 16 == 0
+    err = _build.library().paint_vcg_launch(
+      ids.data_ptr(), vcg.data_ptr(), B, CAP, sx, sy, int(permissible), P,
+      bands, wv, wh, int(split), int(vec_ids),
+      torch.cuda.current_stream(ids.device).cuda_stream)
     _build.check("paint_vcg", err)
     _build.LAUNCHES["paint_vcg"] += 1
   return vcg
-

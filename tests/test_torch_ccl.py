@@ -258,7 +258,7 @@ def test_plant_rejects_bad_inputs():
   with pytest.raises(ValueError):
     ccl.plant(L, roots[:1])
   with pytest.raises(ValueError):
-    ccl.plant(L, torch.zeros((2, ccl.PAINT_CAP_N + 1), dtype=torch.int32))
+    ccl.plant(L, torch.zeros((2, 0), dtype=torch.int32))
   with pytest.raises(ValueError):
     ccl.plant(L, roots, torch.zeros((2, 1, 4), dtype=torch.int32))
   with pytest.raises(ValueError):

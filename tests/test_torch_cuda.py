@@ -15,7 +15,7 @@ from crackle_tpu.headers import CrackFormat
 import crackle_tpu_torch as ct
 from crackle_tpu_torch import operations as tops
 from crackle_tpu_torch import parallel as tpar
-from crackle_tpu_torch.kernels import ccl, replay, stats
+from crackle_tpu_torch.kernels import _build, ccl, replay, stats
 from crackle_tpu_torch.kernels import encode as tenc
 from crackle_tpu_torch.kernels import engine as teng
 from crackle_tpu_torch.ops import analytics as tana
@@ -32,6 +32,7 @@ from test_torch_sharding import ref_compress, roundtrip_case
 from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
 from test_torch_replay import islands_volume, random_stream, spiral_volume
+from test_torch_seams import SEAMS, edge_plant_inputs, seam_ids
 from test_torch_stats import STATS_EDGES, stats_edge_case
 from test_torch_window import checkerboard, islands, nuclei_volume
 
@@ -487,6 +488,91 @@ def test_plant_misses_match_plain(dev):
   got = ccl.plant(L.to(dev), roots.to(dev), T.to(dev))
   torch.cuda.synchronize()
   _equal(got, ccl.plant_plain(L, roots, T))
+
+
+def _unaligned(t):
+  """A contiguous copy of t whose data starts 4 bytes past a 16-byte
+  boundary (the kernels' scalar loads)."""
+  flat = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+  out = flat[1:1 + t.numel()].view(t.shape)
+  out.copy_(t)
+  assert out.is_contiguous() and out.data_ptr() % 16 == 4
+  return out
+
+
+@pytest.mark.parametrize("sx,sy,layout", [
+  (sx, sy, layout) for sx, sy in SEAMS
+  for layout in ("grid", "32-pixel bands", "split", "unaligned ids")
+  if layout != "split" or sx >= 64])
+def test_paint_vcg_band_seams(dev, monkeypatch, sx, sy, layout):
+  """The paint kernel at odd widths, bit-equal to its plain version at
+  B = 1 and 4, on every edge id of the slice, none, random ones (some
+  out of range) and a sparse set: its own grid (more bands than slices
+  at B = 1), bands of 32 pixels (PAINT_MIN_BAND shrunk: a seam every 32
+  pixels, inside rows and across them), bands under a row (PAINT_SMEM_MAX
+  shrunk: split H ranges), and ids 4 bytes off a 16-byte boundary."""
+  if layout == "32-pixel bands":
+    monkeypatch.setattr(replay, "PAINT_MIN_BAND", 32)
+    monkeypatch.setattr(replay, "PAINT_FILL", 1 << 20)
+  if layout == "split":
+    monkeypatch.setattr(replay, "PAINT_SMEM_MAX", 4 * replay._band_words(
+      32 * max(1, sx // 64), sx))
+  ids = torch.from_numpy(seam_ids(sx, sy, sx + sy))
+  sms = _build.sm_count(dev)
+  for B in (1, 4):
+    bands, P = replay.paint_grid(B, sx, sy, sms)
+    assert B > 1 or bands > B
+    assert replay._band_layout(P, sx)[2] == (P < sx)
+    assert layout != "split" or P < sx
+    if layout == "32-pixel bands":
+      assert P == 32
+    x = ids[:B].to(dev)
+    if layout == "unaligned ids":
+      x = _unaligned(x)
+    for perm in (True, False):
+      ct.reset_launches()
+      got = replay.paint_vcg(x, sx, sy, perm)
+      torch.cuda.synchronize()
+      assert ct.LAUNCHES["paint_vcg"] == 1
+      _equal([got], [replay.paint_vcg_plain(ids[:B], sx, sy, perm)])
+
+
+def test_paint_vcg_grid_fills_the_card(dev):
+  """At B = 1 and B = 32 on 512^2 slices the paint's grid holds a block
+  an SM or more, and B = 512 takes one band a slice."""
+  sms = _build.sm_count(dev)
+  for B in (1, 32):
+    bands, _ = replay.paint_grid(B, 512, 512, sms)
+    assert bands > 1 and bands * B >= sms
+  assert replay.paint_grid(512, 512, 512, sms)[0] == 1
+
+
+@pytest.mark.parametrize("K", [0, 1, 2])
+@pytest.mark.parametrize("sy,sx,cap_n,aligned", [
+  (33, 65, 256, True), (16, 64, 4096, True), (256, 512, 65536, True),
+  (1, 7, 8, True), (64, 64, 512, False), (512, 512, 1024, True)])
+def test_plant_edge_ids_match_plain(dev, sy, sx, cap_n, aligned, K):
+  """plant bit-equal to its plain version on ids at -1, at n and past
+  it, equal to the padding root (n), non-roots and roots, with repeated
+  roots; tables past PAINT_CAP_N and past one block's shared memory
+  (65536 roots); n a multiple of 4 (16-byte loads and stores) and not,
+  L 16-byte aligned and not. The dense map is taken from memory the
+  allocator just freed, filled with ranks in [0, cap_n), so an entry no
+  root wrote points at a real rank: the kernel must hold it against the
+  roots."""
+  L, roots, T = edge_plant_inputs(3, sy, sx, cap_n, K, sy + sx + K)
+  L, roots = torch.from_numpy(L), torch.from_numpy(roots)
+  T = torch.from_numpy(T) if K else None
+  want = ccl.plant_plain(L, roots, T)
+  Ld = L.to(dev) if aligned else _unaligned(L.to(dev))
+  junk = [torch.randint(0, cap_n, (3, sy * sx), dtype=torch.int32,
+                        device=dev) for _ in range(4)]
+  del junk
+  ct.reset_launches()
+  got = ccl.plant(Ld, roots.to(dev), T.to(dev) if K else None)
+  torch.cuda.synchronize()
+  assert ct.LAUNCHES["plant"] == 1
+  _equal(got, want)
 
 
 @pytest.mark.parametrize("sy,sx,cap_n", [(40, 24, 64), (512, 512, 1024),
