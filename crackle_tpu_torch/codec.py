@@ -23,6 +23,7 @@ from .ops import labels as _labels_ops
 from .ops import pins as _pins_ops
 from .ops.ccl import color_connectivity_graph_slice
 from .models import markov as _markov
+from .utils.profiling import annotate
 
 PinTuple = namedtuple('Pin', ['index', 'depth'])
 
@@ -68,6 +69,7 @@ def _torch_engine_enabled() -> bool:
 # Header / section accessors
 # ---------------------------------------------------------------------------
 
+@annotate("codec.parse")
 def header(binary: bytes, ignore_crc_check: bool = False) -> CrackleHeader:
   """Decode the header from a Crackle bytestream."""
   return CrackleHeader.frombytes(binary, ignore_crc_check=ignore_crc_check)
@@ -96,6 +98,7 @@ def labels_crc(binary: bytes) -> Optional[int]:
   return int.from_bytes(binary[-crcl:-crcl + 4], 'little')
 
 
+@annotate("codec.parse")
 def crack_crcs(binary: bytes) -> Optional[np.ndarray]:
   """Stored per-slice crack crc32cs."""
   head = header(binary)
@@ -155,6 +158,7 @@ def grid_index(binary: bytes, ignore_crc_check: bool = False) -> np.ndarray:
   return z_index.astype(np.uint64, copy=False)
 
 
+@annotate("codec.parse")
 def crack_codes(binary: bytes) -> List[bytes]:
   head = header(binary)
   z_index = grid_index(binary)
@@ -198,6 +202,7 @@ def labels(binary: bytes) -> np.ndarray:
   return uniq.astype(head.dtype, copy=False)
 
 
+@annotate("codec.parse")
 def num_labels(binary: bytes) -> int:
   """Number of unique labels."""
   head = header(binary)
@@ -434,6 +439,7 @@ def z_range_for_label_condensed_pins(binary: bytes,
 # DECODE
 # ---------------------------------------------------------------------------
 
+@annotate("codec.parse")
 def decode_markov_model(head: CrackleHeader, binary: bytes) -> Optional[np.ndarray]:
   if head.markov_model_order == 0:
     return None
@@ -562,6 +568,7 @@ def _full_decode(binary: bytes, z_start: int, z_end: int,
   return np.ascontiguousarray(arr)
 
 
+@annotate("codec.decompress")
 def decompress_range(binary: bytes, z_start: Optional[int],
                      z_end: Optional[int], parallel: int = 0,
                      label: Optional[int] = None) -> np.ndarray:
@@ -623,6 +630,7 @@ def decompress_binary_image(binary: bytes, label: int, parallel: int = 0,
   return image
 
 
+@annotate("codec.decompress")
 def decompress(binary: bytes, label: Optional[int] = None,
                parallel: int = 0, crop: bool = False) -> np.ndarray:
   """Decompress a Crackle binary into a numpy array. If label is
@@ -745,6 +753,7 @@ def container(head: CrackleHeader, codes, labels_binary: bytes, crcs,
   ])
 
 
+@annotate("codec.compress")
 def compress(labels: np.ndarray, allow_pins: int = 0,
              markov_model_order: int = 0, bgcolor: Optional[int] = None,
              parallel: int = 0, optimize_pins: Optional[bool] = None

@@ -19,6 +19,8 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import count
+
 _POLY = 0x82F63B78  # reflected Castagnoli
 
 W_BLK = 512
@@ -131,6 +133,7 @@ def crc32c_rows(words):
                   1)
   nblk = w.shape[1] // W_BLK
   blocks = w.reshape(B * nblk, W_BLK)
+  count("host_syncs")  # each table's copy from pageable memory waits
   K = torch.from_numpy(_block_table()).to(dev)
   prev_tf32 = torch.backends.cuda.matmul.allow_tf32
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -146,6 +149,7 @@ def crc32c_rows(words):
         R = torch.cat([torch.zeros((B, 1, 32), dtype=torch.int64,
                                    device=dev), R], 1)
         nblk += 1
+      count("host_syncs")
       M = torch.from_numpy(_advance_bits(4 * W_BLK << level)).to(dev)
       left = R[:, 0::2].reshape(-1, 32).to(torch.float32)
       R = _parity_product(left, M).reshape(B, nblk // 2, 32) ^ R[:, 1::2]

@@ -14,6 +14,7 @@ row a piece) on one device:
 """
 import torch
 
+from ..utils.profiling import count
 from . import ccl as _ccl
 from . import replay as _replay
 
@@ -58,6 +59,7 @@ def slice_rows(ids, piece_z, B: int):
   ones of one pixel."""
   P, CAP = ids.shape
   pz = piece_z.to(torch.int64)
+  count("host_syncs", 2 + bool(P))  # the any(), bincount's size, the max
   if P and bool((pz[1:] < pz[:-1]).any()):
     raise ValueError("slice_rows: piece_z is not in slice order")
   counts = torch.bincount(pz, minlength=B)

@@ -25,6 +25,7 @@ from .. import codec as _codec
 from .. import native
 from ..headers import CrackFormat, CrackleHeader, LabelFormat
 from ..lib import compute_byte_width, width2dtype
+from ..utils.profiling import annotate, count, span
 from . import ccl as _ccl
 from . import crc32c as _crc
 from .engine import _fallback
@@ -132,6 +133,7 @@ def component_labels(labels_zyx, cc, N):
   on any device."""
   B = labels_zyx.shape[0]
   n = cc.shape[1]
+  count("host_syncs", bool(B))
   top = int(N.max()) if B else 0
   cap_n = max(1, 1 << max(top - 1, 0).bit_length())
   out = torch.zeros((B, cap_n), dtype=torch.int64, device=cc.device)
@@ -143,6 +145,7 @@ def component_labels(labels_zyx, cc, N):
   # running max of the pixels before it
   first = torch.ones(cc.shape, dtype=torch.bool, device=cc.device)
   first[:, 1:] = cc[:, 1:] > torch.cummax(cc, 1).values[:, :-1]
+  count("host_syncs")  # nonzero's size
   b, p = torch.nonzero(first, as_tuple=True)
   out[b, cc[b, p].to(torch.int64)] = _bits(flat[b, p])
   return out
@@ -197,7 +200,9 @@ def _fetch(packed):
   packed.record_stream(side)
   rows = max(1, FETCH_CHUNK_BYTES // max(nb, 1))
   chunks = []
-  with torch.cuda.stream(side):
+  # the span's events on the side stream time the copies
+  with torch.cuda.stream(side), span("encode.fetch", packed.device):
+    count("d2h_bytes", sz * nb)
     for z0 in range(0, sz, rows):
       z1 = min(z0 + rows, sz)
       host[z0:z1].copy_(packed[z0:z1], non_blocking=True)
@@ -222,10 +227,12 @@ def _trace(packed, sx: int, sy: int, permissible: bool, parallel: int = 0):
     codes[z] = native.encode_slice_vcg(_unpack(rows[z], sxy), sx, sy,
                                        permissible)
 
-  with ThreadPoolExecutor(_codec._pool_size(parallel, sz)) as pool:
+  with span("encode.trace"), \
+       ThreadPoolExecutor(_codec._pool_size(parallel, sz)) as pool:
     futs = []
     for z0, z1, ev in chunks:
       if ev is not None:
+        count("host_syncs")
         ev.synchronize()
       futs += [pool.submit(one, z) for z in range(z0, z1)]
     for f in futs:
@@ -233,6 +240,7 @@ def _trace(packed, sx: int, sy: int, permissible: bool, parallel: int = 0):
   return None if any(c is None for c in codes) else codes
 
 
+@annotate("encode.assemble")
 def assemble_flat_stream(packed, tables, N, crcs, num_pairs: int,
                          sx: int, sy: int, sz: int, *, data_width: int,
                          fortran_order: bool, parallel: int = 0):
@@ -289,30 +297,33 @@ def _stage1_volume(zyx):
   ceil(sy*sx/2)) uint8 on zyx's device, and on the host the label
   tables (sz, cap) uint64, N (sz,) int32, the CRCs (sz,) uint32 and the
   volume's flat pixel pairs."""
-  sz, sy, sx = zyx.shape
-  n = sx * sy
-  dev = zyx.device
-  step = _batch_slices(sz, n)
-  flat = _signed(zyx).reshape(sz, n)
-  packed = torch.empty((sz, (n + 1) // 2), dtype=torch.uint8, device=dev)
-  pairs = torch.zeros((), dtype=torch.int64, device=dev)
-  tabs, Ns, crcs = [], [], []
-  for z0 in range(0, sz, step):
-    planes = zyx[z0:z0 + step]
-    vcg, cc, N, crc, p = _encode_stage1(planes)
-    packed[z0:z0 + step] = _pack_vcg_nibbles(vcg)
-    del vcg
-    pairs += p
-    if z0:  # the pair across the seam with the batch before
-      pairs += flat[z0 - 1, -1] == flat[z0, 0]
-    tabs.append(component_labels(planes, cc, N).cpu().numpy())
-    Ns.append(N)
-    crcs.append(crc)
-  tables = np.zeros((sz, max(t.shape[1] for t in tabs)), np.uint64)
-  for z0, t in zip(range(0, sz, step), tabs):
-    tables[z0:z0 + len(t), :t.shape[1]] = t.view(np.uint64)
-  return (packed, tables, torch.cat(Ns).cpu().numpy(),
-          torch.cat(crcs).cpu().numpy().astype(np.uint32), int(pairs))
+  with span("encode.stage1", zyx.device):
+    sz, sy, sx = zyx.shape
+    n = sx * sy
+    dev = zyx.device
+    step = _batch_slices(sz, n)
+    flat = _signed(zyx).reshape(sz, n)
+    packed = torch.empty((sz, (n + 1) // 2), dtype=torch.uint8, device=dev)
+    pairs = torch.zeros((), dtype=torch.int64, device=dev)
+    tabs, Ns, crcs = [], [], []
+    for z0 in range(0, sz, step):
+      planes = zyx[z0:z0 + step]
+      vcg, cc, N, crc, p = _encode_stage1(planes)
+      packed[z0:z0 + step] = _pack_vcg_nibbles(vcg)
+      del vcg
+      pairs += p
+      if z0:  # the pair across the seam with the batch before
+        pairs += flat[z0 - 1, -1] == flat[z0, 0]
+      count("host_syncs")
+      tabs.append(component_labels(planes, cc, N).cpu().numpy())
+      Ns.append(N)
+      crcs.append(crc)
+    tables = np.zeros((sz, max(t.shape[1] for t in tabs)), np.uint64)
+    for z0, t in zip(range(0, sz, step), tabs):
+      tables[z0:z0 + len(t), :t.shape[1]] = t.view(np.uint64)
+    count("host_syncs", 3)  # N, the CRCs and the pairs to the host
+    return (packed, tables, torch.cat(Ns).cpu().numpy(),
+            torch.cat(crcs).cpu().numpy().astype(np.uint32), int(pairs))
 
 
 def _device_labels(labels, device):

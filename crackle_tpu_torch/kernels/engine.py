@@ -24,6 +24,7 @@ from ..lib import compute_dtype, ctoi
 from ..models import markov as _markov
 from ..ops import crackcode as _cc
 from ..ops import labels as _labels_ops
+from ..utils.profiling import annotate, count, span
 from . import ccl as _ccl
 from . import crc32c as _crc
 from . import decode as _dec
@@ -103,6 +104,7 @@ def _pad_rows(head, prepped):
           "nodes": nodes, "n_chains": n_chains}
 
 
+@annotate("engine.prep")
 def prepare_slice_inputs(binary: bytes, z_start: int, z_end: int):
   """Parse and pad the crack streams of a z window: numpy arrays
   packed (B, CAP_B) uint8, nbytes (B,) int32, nodes (B, CAP_CH) int32,
@@ -159,6 +161,7 @@ def _split_slice_stream(code: bytes, nodes: np.ndarray, max_cps: int):
   return pieces
 
 
+@annotate("engine.prep")
 def prepare_split_inputs(binary: bytes, z_start: int, z_end: int,
                          max_cps: int = 0):
   """prepare_slice_inputs for windows whose slices exceed the device
@@ -187,6 +190,7 @@ def prepare_split_inputs(binary: bytes, z_start: int, z_end: int,
   return _pad_rows(head, prepped), np.asarray(piece_z, np.int32)
 
 
+@annotate("codec.parse")
 def _flat_label_tables(head, binary):
   lb = bytes(_codec.raw_labels(binary))
   n_labels = _labels_ops.decode_num_labels(head, lb)
@@ -231,6 +235,7 @@ def _pack_by_slice(B: int, zi: np.ndarray, cols: list, fills: list):
   return outs
 
 
+@annotate("codec.parse")
 def _pins_device_tables(head, binary: bytes, z_start: int, z_end: int):
   """Host parse of a condensed-pins section into per-slice device
   scatter inputs (labels.hpp:508-617 is the serial equivalent).
@@ -296,8 +301,16 @@ def _pins_device_tables(head, binary: bytes, z_start: int, z_end: int):
   return pin_locs, pin_labs, single_ids, single_labs, bg32, cap_n
 
 
+def _upload(a, dev, dtype) -> torch.Tensor:
+  """A host array as a tensor on dev: one copy from pageable memory,
+  which on a card waits for it (a host sync)."""
+  count("host_syncs")
+  return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(dev)
+
+
 def _i32(a, dev):
-  return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+  with span("engine.upload", dev):
+    return _upload(a, dev, np.int32)
 
 
 def params_from_jax(inputs, T=None, device="cpu", pins=None, piece_z=None):
@@ -310,20 +323,20 @@ def params_from_jax(inputs, T=None, device="cpu", pins=None, piece_z=None):
   The pins come back as (pin_locs, pin_labs, single_ids, single_labs,
   bg32, cap_n) under "pins", the map as int32 under "piece_z"."""
   dev = torch.device(device)
-  out = {
-    "packed": torch.from_numpy(np.ascontiguousarray(
-      inputs["packed"], np.uint8)).to(dev),
-    "nbytes": _i32(inputs["nbytes"], dev),
-    "nodes": _i32(inputs["nodes"], dev),
-    "n_chains": _i32(inputs["n_chains"], dev),
-  }
-  if T is not None:
-    out["T"] = _i32(T, dev)
-  if pins is not None:
-    out["pins"] = tuple(_i32(a, dev) for a in pins[:4]) + (
-      int(pins[4]), int(pins[5]))
-  if piece_z is not None:
-    out["piece_z"] = _i32(piece_z, dev)
+  with span("engine.upload", dev):
+    out = {
+      "packed": _upload(inputs["packed"], dev, np.uint8),
+      "nbytes": _i32(inputs["nbytes"], dev),
+      "nodes": _i32(inputs["nodes"], dev),
+      "n_chains": _i32(inputs["n_chains"], dev),
+    }
+    if T is not None:
+      out["T"] = _i32(T, dev)
+    if pins is not None:
+      out["pins"] = tuple(_i32(a, dev) for a in pins[:4]) + (
+        int(pins[4]), int(pins[5]))
+    if piece_z is not None:
+      out["piece_z"] = _i32(piece_z, dev)
   return out
 
 
@@ -353,8 +366,9 @@ def _window_vcg(binary: bytes, inputs, z_start: int, z_end: int, dev,
   permissible = head.crack_format == CrackFormat.PERMISSIBLE
   if _device_cap_ok(inputs):
     t = params_from_jax(inputs, device=dev)
-    return _dec._vcg_for_ccl(t["packed"], t["nbytes"], t["nodes"],
-                             t["n_chains"], head.sx, head.sy, permissible)
+    with span("decode.replay_ccl", dev):
+      return _dec._vcg_for_ccl(t["packed"], t["nbytes"], t["nodes"],
+                               t["n_chains"], head.sx, head.sy, permissible)
   res = prepare_split_inputs(binary, z_start, z_end)
   if res is None:
     return _fallback(fn, "a markov stream or a single chain exceeds the "
@@ -363,9 +377,10 @@ def _window_vcg(binary: bytes, inputs, z_start: int, z_end: int, dev,
   if not _device_cap_ok(pieces):
     return _fallback(fn, "a piece exceeds MAX_DEVICE_CAP")
   t = params_from_jax(pieces, device=dev, piece_z=piece_z)
-  return _dec.decode_pieces_to_vcg(
-    t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["piece_z"],
-    z_end - z_start, sx=head.sx, sy=head.sy, permissible=permissible)
+  with span("decode.replay_ccl", dev):
+    return _dec.decode_pieces_to_vcg(
+      t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["piece_z"],
+      z_end - z_start, sx=head.sx, sy=head.sy, permissible=permissible)
 
 
 def decode_window_vcg_device(binary: bytes, z_start: int, z_end: int,
@@ -396,7 +411,8 @@ def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int,
                     "decode_window_ccl_device")
   if vcg is None:
     return None
-  cc, N, _ = _ccl.ccl_paint(vcg)
+  with span("decode.replay_ccl", dev):
+    cc, N, _ = _ccl.ccl_paint(vcg)
   return cc, N, inputs["head"]
 
 
@@ -404,13 +420,16 @@ def crc_gate(cc, stored, z_start: int):
   """Raise FormatError naming the first slice whose CRC32C of cc (B,
   sy*sx) int32, computed on cc's device, differs from its stored word
   (stored: (B,) int64 on the same device)."""
-  got = _crc.crc32c_rows(cc)
-  bad = got != stored
-  if bool(bad.any()):
-    i = int(torch.nonzero(bad)[0, 0])
-    raise FormatError(
-      f"crackle: crack code crc mismatch on z={z_start + i} "
-      f"computed: {int(got[i])} stored: {int(stored[i])}")
+  with span("engine.crc_gate", cc.device):
+    got = _crc.crc32c_rows(cc)
+    bad = got != stored
+    count("host_syncs")
+    if bool(bad.any()):
+      count("host_syncs", 4)  # nonzero and three int()s
+      i = int(torch.nonzero(bad)[0, 0])
+      raise FormatError(
+        f"crackle: crack code crc mismatch on z={z_start + i} "
+        f"computed: {int(got[i])} stored: {int(stored[i])}")
 
 
 def _check_window_crcs(binary, head, cc, z_start: int):
@@ -433,7 +452,10 @@ def decode_window_ccl(binary: bytes, z_start: int, z_end: int,
   cc, N, head = res
   if check_crcs:
     _check_window_crcs(binary, head, cc, z_start)
-  return cc.cpu().numpy(), N.cpu().numpy()
+  with span("engine.copy_back", cc.device):
+    count("d2h_bytes", 4 * (cc.numel() + N.numel()))
+    count("host_syncs", 2)
+    return cc.cpu().numpy(), N.cpu().numpy()
 
 
 class DeviceStream:
@@ -490,20 +512,22 @@ class DeviceStream:
     def win(a):
       return a[z_start:z_end]
 
-    if self.pins is not None:
-      pl_, pb_, si_, sl_, bg32, cap_n = self.pins
-      labels, cc, N = _dec.decode_slices_full_pins(
-        win(self.packed), win(self.nbytes), win(self.nodes),
-        win(self.n_chains), win(pl_), win(pb_), win(si_), win(sl_), bg32,
-        sx=self.head.sx, sy=self.head.sy, permissible=self.permissible,
-        cap_n=cap_n)
-    else:
-      labels, cc, N = _dec.decode_slices_full_plant(
-        win(self.packed), win(self.nbytes), win(self.nodes),
-        win(self.n_chains), win(self.T), sx=self.head.sx,
-        sy=self.head.sy, permissible=self.permissible)
-    if check_crcs and self.crcs is not None:
-      crc_gate(cc, self.crcs[z_start:z_end], z_start)
+    with span("DeviceStream.decode_window", self.device):
+      with span("decode.replay_ccl", self.device):
+        if self.pins is not None:
+          pl_, pb_, si_, sl_, bg32, cap_n = self.pins
+          labels, cc, N = _dec.decode_slices_full_pins(
+            win(self.packed), win(self.nbytes), win(self.nodes),
+            win(self.n_chains), win(pl_), win(pb_), win(si_), win(sl_),
+            bg32, sx=self.head.sx, sy=self.head.sy,
+            permissible=self.permissible, cap_n=cap_n)
+        else:
+          labels, cc, N = _dec.decode_slices_full_plant(
+            win(self.packed), win(self.nbytes), win(self.nodes),
+            win(self.n_chains), win(self.T), sx=self.head.sx,
+            sy=self.head.sy, permissible=self.permissible)
+      if check_crcs and self.crcs is not None:
+        crc_gate(cc, self.crcs[z_start:z_end], z_start)
     return labels, cc, N
 
 
@@ -511,8 +535,8 @@ def _stored_crcs(head, binary, dev):
   if head.format_version > 0:
     stored = _codec.crack_crcs(binary)
     if stored is not None:
-      return torch.from_numpy(
-        np.asarray(stored, dtype='<u4').astype(np.int64)).to(dev)
+      with span("engine.upload", dev):
+        return _upload(np.asarray(stored, dtype='<u4'), dev, np.int64)
   return None
 
 
@@ -528,6 +552,11 @@ def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
   where the reference's flat upload declines 1024^2 slices for a TPU
   VMEM limit."""
   dev = _device(device)
+  with span("engine.upload_stream", dev):
+    return _upload_stream(binary, dev)
+
+
+def _upload_stream(binary: bytes, dev) -> Optional[DeviceStream]:
   head = _codec.header(binary)
   if head.label_format == LabelFormat.PINS_VARIABLE_WIDTH:
     return _upload_pins_stream(head, binary, dev)
@@ -544,7 +573,8 @@ def upload_stream(binary: bytes, device="cuda") -> Optional[DeviceStream]:
   if cap_n > _ccl.PAINT_CAP_N:
     return _fallback("upload_stream",
                      f"cap_n={cap_n} > PAINT_CAP_N={_ccl.PAINT_CAP_N}")
-  T = plant_table(uniq, cum, keys, 0, head.sz, cap_n)
+  with span("engine.prep"):
+    T = plant_table(uniq, cum, keys, 0, head.sz, cap_n)
   t = params_from_jax(inputs, T, device=dev)
   return DeviceStream(
     head, t["packed"], t["nbytes"], t["nodes"], t["n_chains"], t["T"],
@@ -607,16 +637,21 @@ def _window_labels(binary: bytes, z_start: int, z_end: int, dev, fn: str,
   if vcg is None:
     return None
   if pins:
-    labels, cc, N = _dec.pins_labels_from_vcg(
-      vcg, *(_i32(a, dev) for a in tables[:4]), int(tables[4]),
-      int(tables[5]))
+    pt = [_i32(a, dev) for a in tables[:4]]
+    with span("decode.replay_ccl", dev):
+      labels, cc, N = _dec.pins_labels_from_vcg(
+        vcg, *pt, int(tables[4]), int(tables[5]))
   elif plant:
-    labels, cc, N = _dec.labels_from_vcg(
-      vcg, _i32(plant_table(uniq, cum, keys, z_start, z_end, cap_n), dev))
+    with span("engine.prep"):
+      T = plant_table(uniq, cum, keys, z_start, z_end, cap_n)
+    T = _i32(T, dev)
+    with span("decode.replay_ccl", dev):
+      labels, cc, N = _dec.labels_from_vcg(vcg, T)
   else:
-    cc, N, _ = _ccl.ccl_paint(vcg)
-    labels = _dec.paint_labels_u32(
-      cc, *_gather_tables(uniq, cum, keys, z_start, z_end, dev))
+    tabs = _gather_tables(uniq, cum, keys, z_start, z_end, dev)
+    with span("decode.replay_ccl", dev):
+      cc, N, _ = _ccl.ccl_paint(vcg)
+      labels = _dec.paint_labels_u32(cc, *tabs)
   return labels, cc, N, vcg, head
 
 
@@ -668,9 +703,10 @@ def _gather_tables(uniq, cum, keys, z_start: int, z_end: int, dev):
   """The gather paint's tables on `dev`: each slice's first component
   (int64), the component -> uniq-index keys (int64) and uniq as int32
   bits (labels of at most 32 bits)."""
-  return (torch.from_numpy(cum[z_start:z_end].astype(np.int64)).to(dev),
-          torch.from_numpy(keys.astype(np.int64)).to(dev),
-          torch.from_numpy(uniq.astype(np.uint32).view(np.int32)).to(dev))
+  with span("engine.upload", dev):
+    return (_upload(cum[z_start:z_end], dev, np.int64),
+            _upload(keys, dev, np.int64),
+            _upload(uniq.astype(np.uint32).view(np.int32), dev, np.int32))
 
 
 def _host_volume(labels, head, B: int) -> np.ndarray:
@@ -680,11 +716,14 @@ def _host_volume(labels, head, B: int) -> np.ndarray:
   have few kernels)."""
   signed = {torch.uint32: torch.int32, torch.uint64: torch.int64}
   unsigned = {torch.uint32: np.uint32, torch.uint64: np.uint64}
-  vol = labels.view(signed.get(labels.dtype, labels.dtype))
-  vol = vol.reshape(B, head.sy, head.sx).permute(2, 1, 0)
-  if not head.fortran_order:
-    vol = vol.contiguous()  # else (B, sy, sx) rows are already F order
-  vol = vol.cpu().numpy()
+  with span("engine.copy_back", labels.device):
+    vol = labels.view(signed.get(labels.dtype, labels.dtype))
+    vol = vol.reshape(B, head.sy, head.sx).permute(2, 1, 0)
+    if not head.fortran_order:
+      vol = vol.contiguous()  # else (B, sy, sx) rows are already F order
+    count("d2h_bytes", vol.numel() * vol.element_size())
+    count("host_syncs")
+    vol = vol.cpu().numpy()
   return vol.view(unsigned[labels.dtype]) if labels.dtype in unsigned \
     else vol
 

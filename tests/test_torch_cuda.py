@@ -5,6 +5,7 @@ These need a CUDA device and skip without one:
   python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import functools
+import os
 
 import numpy as np
 import pytest
@@ -1125,3 +1126,69 @@ def test_trace_names_the_launched_kernels(dev, numpy_engine, tmp_path):
   for k in launched:
     assert any(f"{d}_kernel" in n for d in DEVICE_KERNELS[k]
                for n in names), k
+
+
+def blocky_volume(shape, seed):
+  """Labels constant on boxes of about 16 x 16 x 4 voxels, each of a
+  random label: some 1000 components a slice."""
+  rng = np.random.RandomState(seed)
+  idx = [np.cumsum(rng.rand(n) < 1 / w) for n, w in zip(shape, (16, 16, 4))]
+  lab = rng.randint(0, 2 ** 31, size=[int(i[-1]) + 1 for i in idx])
+  return np.asfortranarray(lab[np.ix_(*idx)].astype(np.uint32))
+
+
+def test_spans_count_every_host_sync(dev, numpy_engine):
+  """A resident decode and a codec.decompress of a 512^2 x 64 stream on
+  the card: the host_syncs their spans count are at least the waits
+  torch's sync debug mode reports, and the CRC gate's span times the
+  gate within 10% of CUDA events around a bare gate on the same cc."""
+  import warnings
+  from crackle_tpu_torch.utils import profiling
+  vol = blocky_volume((512, 512, 64), 17)
+  binary = numpy_engine.compress(vol)
+  stream = teng.upload_stream(binary, dev)
+  numpy_engine.set_engine("torch", device=dev)
+
+  def resident():
+    stream.decode_window(0, 64, check_crcs=True)
+
+  def decompress():
+    assert numpy_engine.decompress(binary).shape == vol.shape
+
+  try:
+    np.testing.assert_array_equal(numpy_engine.decompress(binary), vol)
+    for fn in (resident, decompress):
+      fn()
+      torch.cuda.synchronize(dev)
+      with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+          with profiling.recording():
+            fn()
+        finally:
+          torch.cuda.set_sync_debug_mode("default")
+      waits = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+               if "called a synchronizing" in str(w.message)]
+      counted = sum(s.counters.get("host_syncs", 0)
+                    for s in profiling.spans())
+      assert waits and counted >= len(waits), (fn.__name__, counted, waits)
+    stored = stream.crcs[0:64]
+    gate, bare = [], []
+    for _ in range(5):
+      with profiling.recording():
+        _labels, cc, _N = stream.decode_window(0, 64, check_crcs=True)
+      (s,) = [s for s in profiling.spans() if s.name == "engine.crc_gate"]
+      gate.append(s.device_ms)
+      torch.cuda.synchronize(dev)
+      a = torch.cuda.Event(enable_timing=True)
+      b = torch.cuda.Event(enable_timing=True)
+      a.record()
+      teng.crc_gate(cc, stored, 0)
+      b.record()
+      b.synchronize()
+      bare.append(a.elapsed_time(b))
+    assert abs(np.median(gate) - np.median(bare)) <= 0.1 * np.median(bare), (
+      gate, bare)
+  finally:
+    numpy_engine.set_engine("numpy")
