@@ -28,6 +28,9 @@ Phases, one line each (phases 8 to 19 several):
   4. the flat main path: upload_stream of the 512^3 volume and
      decode_window(0, 512, check_crcs=True), labels bit-equal to the
      host decoder, with no call of torch.sort or replay.sorted_keys;
+     crc32c_rows on its ids at B = 512, 64 and 1 and as 1024 rows of 64
+     words, equal to its plain version (and the slices' to their stored
+     words), timed against its bound;
   5. decode_window(100, 164) of the same stream;
   6. the u64 watershed, 256^2 x 128 and markov 256^2 x 128 volumes the
      same way;
@@ -489,18 +492,24 @@ KERNELS = [
    "crackle_tpu/kernels/replay_big.py:349", "", "compact"),
   ("replay_positions_compact", "crackle_tpu_torch/csrc/compact.cu",
    "crackle_tpu/kernels/replay_big.py:592", "", "compact"),
+  # no Pallas kernel: the TPU computes the CRC gate with XLA matmuls
+  ("crc32c_rows", "crackle_tpu_torch/csrc/crc32c.cu",
+   "crackle_tpu/kernels/crc32c_tpu.py:171 crc32c_words_traced (XLA)", "",
+   "flat"),
 ]
 
 # the kernels each path must launch
 PATHS = {
-  "flat": ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"),
+  "flat": ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint",
+           "crc32c_rows"),
   "compact": ("replay_keys", "cancel_sums", "compact_closes",
-              "replay_positions_compact", "paint_vcg", "ccl_paint"),
+              "replay_positions_compact", "paint_vcg", "ccl_paint",
+              "crc32c_rows"),
   "pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min",
-           "plant"),
+           "plant", "crc32c_rows"),
   "analytics": ("replay_keys", "replay_positions", "paint_vcg",
                 "ccl_paint", "slice_stats"),
-  "encode": ("ccl_paint",),
+  "encode": ("ccl_paint", "crc32c_rows"),
   # phase 18: the VCG from the replay kernels alone; with 6-connectivity
   # the labels too, from the same VCG
   "vcg4": ("replay_keys", "replay_positions", "paint_vcg"),
@@ -735,6 +744,9 @@ def compare_kernels(binary, z1, dev, tag, errs):
                         (ccp, Np, ptp)):
     require_equal(f"{tag} ccl_paint_v2 {name} vs ccl_paint", a, b)
 
+  errs["crc32c_rows"] = max(errs["crc32c_rows"], require_equal(
+    f"{tag} crc32c_rows", crc32c.crc32c_rows(ccp),
+    crc32c.crc32c_rows_plain(ccp)))
   cap_s = ccl._pow2_cap(int(Np.max()))
   errs["slice_stats"] = max(errs["slice_stats"], require_equal(
     f"{tag} slice_stats", stats.slice_stats(ccp, sx, sy, cap_s),
@@ -797,7 +809,7 @@ OPS_PER_S = 67e12
 OPS_PER = {"replay_keys": 40, "replay_positions": 30, "paint_vcg": 15,
            "ccl_paint": 20, "ccl_min": 20, "plant": 30, "slice_stats": 10,
            "cancel_sums": 50, "compact_closes": 3,
-           "replay_positions_compact": 40}
+           "replay_positions_compact": 40, "crc32c_rows": 20}
 
 
 def nbytes_of(*ts):
@@ -817,6 +829,13 @@ def slice_stats_io(cc, cap_n):
   """(bytes, elements) of slice_stats: the ids read once, the (B, cap_n,
   8) int64 statistics written once."""
   return nbytes_of(cc) + cc.shape[0] * cap_n * 8 * 8, cc.numel()
+
+
+def crc32c_rows_io(cc):
+  """(bytes, elements) of crc32c_rows: the words read once, each row's
+  int64 CRC written once (the chunks' partial registers, 4 B a chunk,
+  left out)."""
+  return nbytes_of(cc) + 8 * cc.shape[0], cc.numel()
 
 
 def kernel_io(t, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp,
@@ -843,6 +862,7 @@ def kernel_io(t, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp,
     "compact_closes": compact_closes_io(densep, tablesp),
     "replay_positions_compact": (nbytes_of(cp, t["nodes"], tablesp[0], idsp)
                                  + kept * 8, B * CAP),
+    "crc32c_rows": crc32c_rows_io(ccp),
   }
 
 
@@ -891,6 +911,38 @@ def b1_rows(ids, sx, sy, perm, L, roots, T, errs):
     ms10 = cuda_ms(kern, 10)
     out[name] = (graph_ms(kern, 200), cuda_ms(plain, 2), bms, by, nb, nops,
                  ms10)
+  return out
+
+
+def crc_shape_rows(cc, stored, errs):
+  """tag -> (ms, plain ms, bound ms, bound by, bytes, ops) of crc32c_rows
+  on the ids of a path batch (cc: B = 512 slices of 512^2), its first 64
+  slices, its first slice, and 1024 rows of the first slice's first 64K
+  words: each first held equal to its plain version (errs takes the
+  difference), and the slices' CRCs to their stored words. Timed as at
+  B = 32 (200 launches in one CUDA graph) under 4M words, else as a
+  path batch's stage (20 eager launches)."""
+  B, W = cc.shape
+  shapes = {f"{B}x{W}": cc, f"64x{W}": cc[:64], f"1x{W}": cc[:1],
+            "1024x64": cc[0, :1024 * 64].reshape(1024, 64)}
+  out = {}
+  for tag, words in shapes.items():
+    words = words.contiguous()
+    got = crc32c.crc32c_rows(words)
+    e = require_equal(f"{tag} crc32c_rows", got,
+                      crc32c.crc32c_rows_plain(words))
+    if words.shape[1] == W:
+      e = max(e, require_equal(f"{tag} crc32c_rows against the stored words",
+                               got, stored[:words.shape[0]]))
+    errs["crc32c_rows"] = max(errs["crc32c_rows"], e)
+
+    def kern():
+      return crc32c.crc32c_rows(words)
+
+    ms = graph_ms(kern, 200) if words.numel() < 1 << 22 else cuda_ms(kern, 20)
+    nb, nops, bms, by = bound("crc32c_rows", *crc32c_rows_io(words))
+    out[tag] = (ms, cuda_ms(lambda: crc32c.crc32c_rows_plain(words), 2), bms,
+                by, nb, nops)
   return out
 
 
@@ -1136,6 +1188,8 @@ def run(dev, card, kind, oracles, paths, t_or):
       cp, tablesp, t["nodes"], sx, sy),
       lambda: replay.replay_positions_compact_plain(
         cp, tablesp, t["nodes"], sx, sy)),
+    "crc32c_rows": (lambda: crc32c.crc32c_rows(ccp),
+                    lambda: crc32c.crc32c_rows_plain(ccp)),
   }
   # each kernel over 200 launches in one CUDA graph (the wrappers'
   # Python outlasts the shortest kernels), and over 10 eager launches
@@ -1198,6 +1252,16 @@ def run(dev, card, kind, oracles, paths, t_or):
          f"{t_up * 1e3:.3f} ms, first decode_window(0, 512, "
          f"check_crcs=True) {t_dec * 1e3:.3f} ms, labels bit-equal to the "
          f"host decoder, max N {int(N.max())}")
+  crc_rows = crc_shape_rows(cc, stream.crcs, errs)
+  for tag, (km, pm, bms, by, nb, nops) in crc_rows.items():
+    say(4, f"crc32c_rows {tag} (the 512^3 ids): kernel {km:.4f} ms, plain "
+           f"{pm:.4f} ms, bound {bms * 1e3:.2f} us by {by} ({nb} bytes, "
+           f"{nops} ops; {100 * bms / km:.1f}% of the bound), equal to the "
+           f"plain version" + (" and the stored words" if tag != "1024x64"
+                               else ""))
+  km, _, bms, *_ = crc_rows[f"{sz}x{sx * sy}"]
+  full["crc32c_rows"] = (sz, km, bms)
+  crc_b1 = crc_rows[f"1x{sx * sy}"]
   del labels, cc
 
   # 5: a window
@@ -1494,6 +1558,11 @@ def run(dev, card, kind, oracles, paths, t_or):
     if name in one:
       km, pm, bms, *_ = one[name]
       row.update({"b1_ms": km, "b1_plain_ms": pm, "b1_bound_ms": bms})
+    if name == "crc32c_rows":
+      km, pm, bms, *_ = crc_b1
+      row.update({"b1_ms": km, "b1_plain_ms": pm, "b1_bound_ms": bms})
+      row["shapes"] = {tag: {"ms": km, "plain_ms": pm, "bound_ms": bms}
+                       for tag, (km, pm, bms, *_) in crc_rows.items()}
     row["sharded_launches"] = {path: n[name] for path, n in sharded.items()
                                if n.get(name)}
     row["operations_launches"] = launches["operations"][name]
@@ -2023,10 +2092,11 @@ def per_shard(mesh, kind):
 
 
 def encode_launches(mesh, sz, sxy):
-  """ccl_paint launches of compress_sharded: each shard's stage-1
-  batches."""
-  return {"ccl_paint": sum(-(-(z1 - z0) // enc._batch_slices(z1 - z0, sxy))
-                           for _, z0, z1 in sharding._shards(mesh, sz))}
+  """ccl_paint and crc32c_rows launches of compress_sharded: one each a
+  stage-1 batch of each shard."""
+  n = sum(-(-(z1 - z0) // enc._batch_slices(z1 - z0, sxy))
+          for _, z0, z1 in sharding._shards(mesh, sz))
+  return {"ccl_paint": n, "crc32c_rows": n}
 
 
 def require_counts(what, counts, orc):
@@ -2476,22 +2546,28 @@ EACH_LABELS = 8
 
 
 class CrcCount:
-  """Counts the calls of crc32c.crc32c_rows (the CRC gate and the
-  encode's CRCs) while it is entered."""
+  """Counts the calls of crc32c.crc32c_rows (the encode's CRCs) and
+  crc32c.crc32c_first_mismatch (the CRC gate) while it is entered."""
+
+  NAMES = ("crc32c_rows", "crc32c_first_mismatch")
 
   def __enter__(self):
     self.n = 0
-    self._rows = crc32c.crc32c_rows
+    self._fns = {name: getattr(crc32c, name) for name in self.NAMES}
 
-    def rows(*a, **k):
-      self.n += 1
-      return self._rows(*a, **k)
+    def counted(fn):
+      def call(*a, **k):
+        self.n += 1
+        return fn(*a, **k)
+      return call
 
-    crc32c.crc32c_rows = rows
+    for name, fn in self._fns.items():
+      setattr(crc32c, name, counted(fn))
     return self
 
   def __exit__(self, *exc):
-    crc32c.crc32c_rows = self._rows
+    for name, fn in self._fns.items():
+      setattr(crc32c, name, fn)
 
 
 def take(total):
@@ -2545,7 +2621,7 @@ def phase_operations(dev, ops_oracle, paths):
     f"{k} {v:.3f}" for k, v in secs.items()))
   streams = {tag: (os.path.basename(p), read(p)) for tag, p in
              vcg_cells(paths)}
-  total = {name: 0 for name, *_ in KERNELS}
+  total = {name: 0 for name in ct.LAUNCHES}
   pcodec.set_engine("torch", device=dev)
   try:
     with HostDeclines() as declines:
@@ -2825,7 +2901,7 @@ def phase_arrays(dev, stream, paths, ops_oracle, card):
   sx, sy, sz = head.sx, head.sy, head.sz
   vol = np.load(paths["512"]).reshape(sz, sy, sx).transpose(2, 1, 0)
   orc = np.load(paths["stats"])
-  total = {name: 0 for name, *_ in KERNELS}
+  total = {name: 0 for name in ct.LAUNCHES}
   tmp = tempfile.mkdtemp(dir=os.path.dirname(paths["stats"]))
   pcodec.set_engine("torch", device=dev)
   try:
@@ -3273,6 +3349,7 @@ DEVICE_KERNELS = {
   "cancel_sums": ("cancel_sums",),
   "compact_closes": ("compact_closes",),
   "replay_positions_compact": ("replay_positions_compact",),
+  "crc32c_rows": ("crc32c_chunks", "crc32c_combine"),
 }
 CCL_PASSES = DEVICE_KERNELS["ccl_paint"]
 

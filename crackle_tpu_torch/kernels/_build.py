@@ -31,13 +31,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"replay_keys": 0, "replay_positions": 0, "paint_vcg": 0,
             "ccl_paint": 0, "ccl_min": 0, "plant": 0, "slice_stats": 0,
             "cancel_sums": 0, "compact_closes": 0,
-            "replay_positions_compact": 0}
+            "replay_positions_compact": 0, "crc32c_rows": 0}
 
 # wall seconds the last build took (0.0 when it was found built)
 build_seconds = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGNATURES = {
   # packed, nbytes, n_chains, ev, cls, drange, B, CAP_B, threads,
   # aligned, stream
@@ -68,6 +69,10 @@ _SIGNATURES = {
   # window, stream
   "replay_positions_compact_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
                                       _I, _I, _I, _P],
+  # words, tables, ctab, part, stored, crc, first_bad, B, W, nchunks, G,
+  # vec, c0, stream
+  "crc32c_rows_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U,
+                         _P],
 }
 
 

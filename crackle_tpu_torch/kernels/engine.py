@@ -419,14 +419,15 @@ def decode_window_ccl_device(binary: bytes, z_start: int, z_end: int,
 def crc_gate(cc, stored, z_start: int):
   """Raise FormatError naming the first slice whose CRC32C of cc (B,
   sy*sx) int32, computed on cc's device, differs from its stored word
-  (stored: (B,) int64 on the same device)."""
+  (stored: (B,) int64 on the same device). The host waits once, for the
+  first mismatching slice (kernel 11 finds it on the card), and twice
+  more for the message of a mismatch."""
   with span("engine.crc_gate", cc.device):
-    got = _crc.crc32c_rows(cc)
-    bad = got != stored
+    got, first = _crc.crc32c_first_mismatch(cc, stored)
     count("host_syncs")
-    if bool(bad.any()):
-      count("host_syncs", 4)  # nonzero and three int()s
-      i = int(torch.nonzero(bad)[0, 0])
+    i = int(first)
+    if i < cc.shape[0]:
+      count("host_syncs", 2)
       raise FormatError(
         f"crackle: crack code crc mismatch on z={z_start + i} "
         f"computed: {int(got[i])} stored: {int(stored[i])}")

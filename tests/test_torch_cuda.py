@@ -6,6 +6,7 @@ These need a CUDA device and skip without one:
 """
 import functools
 import os
+import time
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import crackle_tpu_torch as ct
 from crackle_tpu_torch import operations as tops
 from crackle_tpu_torch import parallel as tpar
 from crackle_tpu_torch.kernels import _build, ccl, replay, stats
+from crackle_tpu_torch.kernels import crc32c as tcrc
 from crackle_tpu_torch.kernels import encode as tenc
 from crackle_tpu_torch.kernels import engine as teng
 from crackle_tpu_torch.ops import analytics as tana
@@ -1137,11 +1139,18 @@ def blocky_volume(shape, seed):
   return np.asfortranarray(lab[np.ix_(*idx)].astype(np.uint32))
 
 
-def test_spans_count_every_host_sync(dev, numpy_engine):
+def test_spans_count_every_host_sync(dev, numpy_engine, monkeypatch):
   """A resident decode and a codec.decompress of a 512^2 x 64 stream on
   the card: the host_syncs their spans count are at least the waits
-  torch's sync debug mode reports, and the CRC gate's span times the
-  gate within 10% of CUDA events around a bare gate on the same cc."""
+  torch's sync debug mode reports, and the CRC gate's span inside a
+  resident decode of the window times the gate within 10% of CUDA events
+  around the same call. The card is kept busy while the host enters the
+  gate, as the window's replay keeps it, so that neither start event
+  waits for the host's set-up of the gate. The gate's wait leaves the
+  card idle, so each end event is stamped when the host records it: the
+  outer one after the span's, by the host's return from the gate (15-45
+  us of a gate of some 0.1 ms on an H100's host), which the host's clock
+  measures from the span's end and the outer time leaves out."""
   import warnings
   from crackle_tpu_torch.utils import profiling
   vol = blocky_volume((512, 512, 64), 17)
@@ -1173,22 +1182,138 @@ def test_spans_count_every_host_sync(dev, numpy_engine):
       counted = sum(s.counters.get("host_syncs", 0)
                     for s in profiling.spans())
       assert waits and counted >= len(waits), (fn.__name__, counted, waits)
-    stored = stream.crcs[0:64]
-    gate, bare = [], []
-    for _ in range(5):
-      with profiling.recording():
-        _labels, cc, _N = stream.decode_window(0, 64, check_crcs=True)
-      (s,) = [s for s in profiling.spans() if s.name == "engine.crc_gate"]
-      gate.append(s.device_ms)
-      torch.cuda.synchronize(dev)
+    gate_fn, events = teng.crc_gate, []
+
+    def timed_gate(cc, stored, z_start):
+      on = torch.cuda.current_stream(dev)
       a = torch.cuda.Event(enable_timing=True)
       b = torch.cuda.Event(enable_timing=True)
-      a.record()
-      teng.crc_gate(cc, stored, 0)
-      b.record()
-      b.synchronize()
-      bare.append(a.elapsed_time(b))
-    assert abs(np.median(gate) - np.median(bare)) <= 0.1 * np.median(bare), (
-      gate, bare)
+      torch.cuda._sleep(1 << 20)  # some 0.5 ms of the card
+      a.record(on)
+      gate_fn(cc, stored, z_start)
+      returned = time.perf_counter_ns()
+      b.record(on)
+      events.append((a, b, returned))
+
+    monkeypatch.setattr(teng, "crc_gate", timed_gate)
+    gate, ended = [], []
+    for _ in range(5):
+      with profiling.recording():
+        stream.decode_window(0, 64, check_crcs=True)
+      (s,) = [s for s in profiling.spans() if s.name == "engine.crc_gate"]
+      gate.append(s.device_ms)
+      ended.append(s.end_ns)
+    torch.cuda.synchronize(dev)
+    outer = [a.elapsed_time(b) - (returned - end) * 1e-6
+             for (a, b, returned), end in zip(events, ended)]
+    assert len(outer) == 5
+    assert abs(np.median(gate) - np.median(outer)) <= 0.1 * np.median(
+      outer), (gate, outer)
   finally:
     numpy_engine.set_engine("numpy")
+
+
+# (B, W) of the CRC kernel's tests: the widths of a slice from one word
+# to past 2^19, at one, a few and a window of slices (600001 words only
+# at few), and a batch of small slices
+CRC_SHAPES = [(B, W) for W in (1, 3, 129, 511, 512, 513, 4096, 262144,
+                               600001)
+              for B in (1, 7, 512) if not (W == 600001 and B == 512)]
+CRC_SHAPES.append((1024, 64))
+
+
+def _crc_words(B, W, seed):
+  """Random (B, W) int32 words, negative ones included, on the host."""
+  rng = np.random.RandomState(seed)
+  return rng.randint(0, 2 ** 32, size=(B, W), dtype=np.uint32).view(np.int32)
+
+
+def _crc_reference(words):
+  """The reference's lib.crc32c of each row, up to 2^16 words; past
+  that, the port's copy of it, whose native CRC stands in for the
+  per-byte Python loop the reference takes without google_crc32c (about
+  a second a MB)."""
+  if words.size <= 1 << 16:
+    crc32c = crackle.lib.crc32c
+  else:
+    from crackle_tpu_torch.lib import crc32c
+  return np.array([crc32c(row) for row in words], np.int64)
+
+
+@pytest.mark.parametrize("B,W", CRC_SHAPES)
+def test_crc32c_kernel_matches_reference(dev, B, W):
+  words = _crc_words(B, W, B * 1000003 + W)
+  t = torch.from_numpy(words).to(dev)
+  want = _crc_reference(words)
+  _build.reset_launches()
+  got = tcrc.crc32c_rows(t)
+  assert _build.LAUNCHES["crc32c_rows"] == 1
+  assert got.dtype == torch.int64 and got.device == t.device
+  np.testing.assert_array_equal(got.cpu().numpy(), want)
+  np.testing.assert_array_equal(tcrc.crc32c_rows_plain(t).cpu().numpy(),
+                                want)
+
+
+@pytest.mark.parametrize("W", [4096, 513])
+def test_crc32c_kernel_reads_unaligned_rows(dev, W):
+  """Rows that do not start on 16 bytes take the kernel's word loads."""
+  words = _crc_words(7, W, W)
+  buf = torch.zeros(7 * W + 1, dtype=torch.int32, device=dev)
+  t = buf[1:].view(7, W)
+  t.copy_(torch.from_numpy(words))
+  assert t.data_ptr() % 16
+  np.testing.assert_array_equal(tcrc.crc32c_rows(t).cpu().numpy(),
+                                _crc_reference(words))
+
+
+@pytest.fixture(scope="module")
+def crc_window():
+  """A 512^2 x 64 window of random words on the card and its CRCs."""
+  if not torch.cuda.is_available():
+    pytest.skip("needs a CUDA device")
+  words = torch.from_numpy(_crc_words(64, 512 * 512, 64)).cuda()
+  return words, tcrc.crc32c_rows(words)
+
+
+@pytest.mark.parametrize("where", ["first", "middle", "last"])
+def test_crc_gate_names_the_flipped_slice(dev, crc_window, where):
+  """One word flipped in a slice's first, middle or last chunk (and a
+  later slice flipped too): the gate names the first of them."""
+  words, stored = crc_window
+  W = words.shape[1]
+  G = tcrc.chunk_groups(64, W, _build.sm_count(dev))
+  chunk = G * tcrc.GROUP
+  assert W // chunk >= 3
+  at = {"first": 5, "middle": W // 2 + 77, "last": W - 1}[where]
+  bad = words.clone()
+  bad[17, at] ^= -2 ** 31 if where == "middle" else 1
+  bad[40, 0] ^= 4
+  teng.crc_gate(words, stored, 100)
+  with pytest.raises(ct.FormatError, match="crc mismatch on z=117 "):
+    teng.crc_gate(bad, stored, 100)
+
+
+def test_crc_gate_waits_once_and_launches_once(dev, crc_window):
+  """A clean gate: one launch of the kernel a gate, one wait that torch's
+  sync debug mode reports and its span counts, its tables copied to the
+  card once."""
+  import warnings
+  from crackle_tpu_torch.utils import profiling
+  words, stored = crc_window
+  teng.crc_gate(words, stored, 0)
+  torch.cuda.synchronize(dev)
+  _build.reset_launches()
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+      with profiling.recording():
+        for _ in range(3):
+          teng.crc_gate(words, stored, 0)
+    finally:
+      torch.cuda.set_sync_debug_mode("default")
+  waits = [w for w in caught if "called a synchronizing" in str(w.message)]
+  assert len(waits) == 3, [str(w.message) for w in waits]
+  assert _build.LAUNCHES["crc32c_rows"] == 3
+  gates = [s for s in profiling.spans() if s.name == "engine.crc_gate"]
+  assert [s.counters for s in gates] == [{"host_syncs": 1}] * 3

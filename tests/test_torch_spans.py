@@ -119,7 +119,7 @@ def test_decompress_spans_nest_under_one_request(torch_cpu, tracing):
   assert only(recs, "engine.copy_back").counters == {
     "d2h_bytes": out.nbytes, "host_syncs": 1}
   gate = only(recs, "engine.crc_gate")
-  assert gate.counters["host_syncs"] >= 2
+  assert gate.counters == {"host_syncs": 1}  # the first mismatch's wait
   assert all(s.counters.get("host_syncs", 0) >= 1
              for s in recs if s.name == "engine.upload")
 
@@ -154,8 +154,8 @@ def test_encode_spans(tracing):
                          "encode.assemble", "encode.trace"]
   assert ancestors(recs, recs[3]) == ["encode.assemble", "codec.compress"]
   # the N max and nonzero of the one batch, its table, and N, the CRCs
-  # and the pairs to the host, beside the CRC's table copies
-  assert recs[1].counters["host_syncs"] >= 6
+  # and the pairs to the host
+  assert recs[1].counters["host_syncs"] == 6
 
 
 def test_spans_close_on_an_exception(torch_cpu):
@@ -169,7 +169,7 @@ def test_spans_close_on_an_exception(torch_cpu):
   recs = profiling.spans()
   assert all(s.end_ns is not None for s in recs)
   gate = only(recs, "engine.crc_gate")
-  assert gate.counters["host_syncs"] >= 6  # the gate's, and the message's
+  assert gate.counters["host_syncs"] == 3  # the gate's, and the message's
   assert "engine.copy_back" not in names(recs)
   assert recs[-1].name == "after" and recs[-1].parent is None
   assert recs[-1].request != recs[0].request
