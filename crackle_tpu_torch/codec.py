@@ -753,6 +753,39 @@ def container(head: CrackleHeader, codes, labels_binary: bytes, crcs,
   ])
 
 
+def stream_header(shape, data_width: int, max_label: int, num_pairs: int,
+                  fortran_order: bool, allow_pins: int = 0,
+                  markov_model_order: int = 0) -> CrackleHeader:
+  """The header compress writes for labels of `shape` (sx, sy, sz) whose
+  largest label is max_label and whose flat F-order pixel pairs number
+  num_pairs: the crack format from the pairs, condensed pins where they
+  are allowed, the pairs pick the impermissible format and sz is not 1,
+  and the stored width from max_label. The host and device encoders
+  both take their format decision here."""
+  sx, sy, sz = shape
+  # integer division matches the reference (crackle.hpp:52 divides
+  # int64s), and the native/wasm encoders already use it — for odd
+  # voxel counts with num_pairs == voxels // 2 float division would
+  # pick the other crack format and break byte-identity
+  permissible = num_pairs < sx * sy * sz // 2
+  pins = bool(allow_pins) and not permissible and sz != 1
+  return CrackleHeader(
+    label_format=(LabelFormat.PINS_VARIABLE_WIDTH if pins
+                  else LabelFormat.FLAT),
+    crack_format=(CrackFormat.PERMISSIBLE if permissible
+                  else CrackFormat.IMPERMISSIBLE),
+    data_width=data_width,
+    stored_data_width=compute_byte_width(max_label),
+    sx=sx, sy=sy, sz=sz,
+    num_label_bytes=0,
+    fortran_order=fortran_order,
+    grid_size=2 ** 31,
+    signed=False,
+    markov_model_order=markov_model_order,
+    is_sorted=True,
+  )
+
+
 @annotate("codec.compress")
 def compress(labels: np.ndarray, allow_pins: int = 0,
              markov_model_order: int = 0, bgcolor: Optional[int] = None,
@@ -777,20 +810,31 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
   if labels.ndim > 3:
     raise ValueError(f"{labels.ndim}d arrays are not supported.")
 
+  if optimize_pins is None:
+    optimize_pins = (allow_pins == 2)
+
   # A torch tensor, or any input under set_engine('torch'): the
-  # per-voxel encode stages (VCG, CCL, label tables, CRC32C) run on the
-  # tensor's device, or the engine's for numpy input, and only the
-  # serial trace on the host (kernels/encode.py). Numpy and CPU tensors
-  # fall through to the host path where it declines; labels on a card
-  # reach the host path only for pins, markov or another rank, or when
-  # they are empty.
+  # per-voxel encode stages (VCG, CCL, label tables, CRC32C) and, for
+  # the fast pins solver, the pins' column scan and cover index run on
+  # the tensor's device, or the engine's for numpy input, and only the
+  # serial trace, the pins' pick order and the assembly on the host
+  # (kernels/encode.py). Numpy and CPU tensors fall through to the host
+  # path where the device encode declines; labels on a card raise there,
+  # and reach the host path only for the optimal pins solver, markov or
+  # another rank, or when they are empty.
   if is_tensor or _ENGINE == 'torch':
     from .kernels import encode as _enc
-    if labels.ndim == 3 and not allow_pins and markov_model_order == 0:
+    if (labels.ndim == 3 and markov_model_order == 0
+        and not (allow_pins and optimize_pins)):
       forder = is_tensor or bool(labels.flags.f_contiguous)
-      out = _enc.encode_flat_device(
-        labels, parallel=parallel, fortran_order=forder,
-        device=labels.device if is_tensor else _DEVICE)
+      dev = labels.device if is_tensor else _DEVICE
+      if allow_pins:
+        out = _enc.encode_pins_device(labels, parallel=parallel,
+                                      fortran_order=forder, device=dev,
+                                      bgcolor=bgcolor)
+      else:
+        out = _enc.encode_flat_device(labels, parallel=parallel,
+                                      fortran_order=forder, device=dev)
       if out is not None:
         return out
       if is_tensor and labels.device.type != 'cpu' and labels.numel():
@@ -809,8 +853,6 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
 
   f_order = labels.flags.f_contiguous
   labels = np.asfortranarray(labels)
-  if optimize_pins is None:
-    optimize_pins = (allow_pins == 2)
   auto_bgcolor = bgcolor is None
   manual_bgcolor = 0 if bgcolor is None else int(bgcolor)
 
@@ -819,41 +861,16 @@ def compress(labels: np.ndarray, allow_pins: int = 0,
   flat = labels.ravel(order='F')
 
   max_label = int(flat.max()) if voxels else 0
-  stored_width = compute_byte_width(max_label)
-  stored_dtype = width2dtype[stored_width]
-
   num_pairs = int(np.count_nonzero(flat[1:] == flat[:-1])) if voxels else 0
-
-  crack_format = CrackFormat.IMPERMISSIBLE
-  label_format = LabelFormat.PINS_VARIABLE_WIDTH
-  # integer division matches the reference (crackle.hpp:52 divides
-  # int64s), and the native/wasm encoders already use it — for odd
-  # voxel counts with num_pairs == voxels // 2 float division would
-  # pick the other crack format and break byte-identity
-  if num_pairs < voxels // 2:
-    crack_format = CrackFormat.PERMISSIBLE
-    label_format = LabelFormat.FLAT
-  if sz == 1 or not allow_pins:
-    label_format = LabelFormat.FLAT
-
-  head = CrackleHeader(
-    label_format=label_format,
-    crack_format=crack_format,
-    data_width=labels.dtype.itemsize,
-    stored_data_width=stored_width,
-    sx=sx, sy=sy, sz=sz,
-    num_label_bytes=0,
-    fortran_order=f_order,
-    grid_size=2 ** 31,
-    signed=False,
-    markov_model_order=markov_model_order,
-    is_sorted=True,
-  )
+  head = stream_header((sx, sy, sz), labels.dtype.itemsize, max_label,
+                       num_pairs, f_order, allow_pins, markov_model_order)
+  stored_dtype = width2dtype[head.stored_data_width]
+  label_format = head.label_format
 
   if voxels == 0:
     return head.tobytes()
 
-  permissible = crack_format == CrackFormat.PERMISSIBLE
+  permissible = head.crack_format == CrackFormat.PERMISSIBLE
 
   if (head.markov_model_order == 0
       and label_format == LabelFormat.FLAT):

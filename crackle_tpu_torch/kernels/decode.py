@@ -14,7 +14,7 @@ row a piece) on one device:
 """
 import torch
 
-from ..utils.profiling import count
+from ..utils.profiling import count, span
 from . import ccl as _ccl
 from . import replay as _replay
 
@@ -172,26 +172,33 @@ def decode_slices_full_pins(packed, nbytes, nodes, n_chains, pin_locs,
 def pins_labels_from_vcg(vcg, pin_locs, pin_labs, single_ids, single_labs,
                          bg32: int, cap_n: int):
   """The CCL and label paint of decode_slices_full_pins on a window's
-  VCG (B, sy, sx) int32. Returns (labels (B, sy*sx) uint32, cc int32, N
-  int32), all on vcg's device."""
+  VCG (B, sy, sx) int32, in two spans: decode.pins_ccl (the CCL and the
+  first-visit ids) and decode.pins_paint (the label table and the
+  paint), which counts the window's pin and single table slots
+  (pins_slots). Returns (labels (B, sy*sx) uint32, cc int32, N int32),
+  all on vcg's device."""
+  dev = vcg.device
   plant_ok = cap_n <= _ccl.PAINT_CAP_N
-  if plant_ok:
-    cap2 = _ccl._pow2_cap(cap_n)
-    L, tgt = _ccl.ccl_min(vcg)
-    roots, N = _ccl.roots_from_tgt(tgt, cap2)
-    cc, _ = _ccl.plant(L, roots)
-  else:
-    cc, N, _ = _ccl.ccl_paint(vcg)
+  with span("decode.pins_ccl", dev):
+    if plant_ok:
+      cap2 = _ccl._pow2_cap(cap_n)
+      L, tgt = _ccl.ccl_min(vcg)
+      roots, N = _ccl.roots_from_tgt(tgt, cap2)
+      cc, _ = _ccl.plant(L, roots)
+    else:
+      cc, N, _ = _ccl.ccl_paint(vcg)
 
-  T = pins_label_table(cc, pin_locs, pin_labs, single_ids, single_labs,
-                       bg32, cap_n)
-  if plant_ok:
-    Tp = torch.nn.functional.pad(T[:, None, :cap_n], (0, cap2 - cap_n))
-    _, painted = _ccl.plant(L, roots, Tp.contiguous())
-    painted = painted[:, 0]
-  else:
-    painted = torch.gather(
-      T, 1, torch.clamp(cc.to(torch.int64), 0, cap_n))
+  with span("decode.pins_paint", dev):
+    count("pins_slots", pin_locs.numel() + single_ids.numel())
+    T = pins_label_table(cc, pin_locs, pin_labs, single_ids, single_labs,
+                         bg32, cap_n)
+    if plant_ok:
+      Tp = torch.nn.functional.pad(T[:, None, :cap_n], (0, cap2 - cap_n))
+      _, painted = _ccl.plant(L, roots, Tp.contiguous())
+      painted = painted[:, 0]
+    else:
+      painted = torch.gather(
+        T, 1, torch.clamp(cc.to(torch.int64), 0, cap_n))
   return painted.contiguous().view(torch.uint32), cc, N
 
 

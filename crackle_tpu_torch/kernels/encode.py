@@ -12,7 +12,12 @@ side stream while earlier chunks are traced.
 Labels are compared through the signed view of their width (uint32 as
 int32, uint64 as int64): torch's unsigned types have few CUDA kernels.
 
+The condensed-pins encode (allow_pins=1) keeps each slice's first-visit
+ids from the same stage 1 in place of the label tables and finds the
+pins on the device too (ops/pins.py solve).
+
   data = encode_flat_device(labels)   # (sx, sy, sz) uint8..uint64
+  data = encode_pins_device(labels)   # the same with allow_pins=1
   data = codec.compress(labels)       # the same for a torch tensor
 """
 import math
@@ -23,8 +28,10 @@ import torch
 
 from .. import codec as _codec
 from .. import native
-from ..headers import CrackFormat, CrackleHeader, LabelFormat
-from ..lib import compute_byte_width, width2dtype
+from ..headers import CrackFormat, LabelFormat
+from ..lib import width2dtype
+from ..ops import labels as _labels
+from ..ops import pins as _pins
 from ..utils.profiling import annotate, count, span
 from . import ccl as _ccl
 from . import crc32c as _crc
@@ -253,35 +260,17 @@ def assemble_flat_stream(packed, tables, N, crcs, num_pairs: int,
   tensor on any device; the reference takes them unpacked and packs
   them itself); tables (sz, cap) uint64, N (sz,), crcs (sz,) u32;
   num_pairs: the flat F-order pixel pairs of the whole volume."""
-  voxels = sx * sy * sz
-  permissible = num_pairs < voxels // 2
-  crack_format = (CrackFormat.PERMISSIBLE if permissible
-                  else CrackFormat.IMPERMISSIBLE)
-
   mapping = np.concatenate([tables[z, :N[z]] for z in range(sz)]) \
     if sz else np.zeros(0, np.uint64)
-  max_label = int(mapping.max()) if len(mapping) else 0
-  stored_width = compute_byte_width(max_label)
-
-  codes = _trace(packed, sx, sy, permissible, parallel)
+  head = _codec.stream_header(
+    (sx, sy, sz), data_width, int(mapping.max()) if len(mapping) else 0,
+    num_pairs, fortran_order)
+  codes = _trace(packed, sx, sy,
+                 head.crack_format == CrackFormat.PERMISSIBLE, parallel)
   if codes is None:
     return None
-
-  head = CrackleHeader(
-    label_format=LabelFormat.FLAT,
-    crack_format=crack_format,
-    data_width=data_width,
-    stored_data_width=stored_width,
-    sx=sx, sy=sy, sz=sz,
-    num_label_bytes=0,
-    fortran_order=fortran_order,
-    grid_size=2 ** 31,
-    signed=False,
-    markov_model_order=0,
-    is_sorted=True,
-  )
   labels_binary = _codec.flat_labels_section(
-    mapping, N, sx * sy, width2dtype[stored_width])
+    mapping, N, sx * sy, width2dtype[head.stored_data_width])
   return _codec.container(head, codes, labels_binary, crcs)
 
 
@@ -291,12 +280,14 @@ def _batch_slices(sz: int, n: int) -> int:
   return max(1, min(sz, STAGE1_PIX // n, _MAX_GRID_Y))
 
 
-def _stage1_volume(zyx):
+def _stage1_volume(zyx, keep_cc: bool = False):
   """Stage 1 of a contiguous (sz, sy, sx) label volume in batches of
   whole slices (STAGE1_PIX pixels): the nibble-packed VCGs (sz,
   ceil(sy*sx/2)) uint8 on zyx's device, and on the host the label
   tables (sz, cap) uint64, N (sz,) int32, the CRCs (sz,) uint32 and the
-  volume's flat pixel pairs."""
+  volume's flat pixel pairs. keep_cc (the pins encode) keeps each
+  slice's first-visit ids, (sz, sy*sx) int32 on zyx's device, in place
+  of the label tables."""
   with span("encode.stage1", zyx.device):
     sz, sy, sx = zyx.shape
     n = sx * sy
@@ -304,6 +295,8 @@ def _stage1_volume(zyx):
     step = _batch_slices(sz, n)
     flat = _signed(zyx).reshape(sz, n)
     packed = torch.empty((sz, (n + 1) // 2), dtype=torch.uint8, device=dev)
+    ccs = torch.empty((sz, n), dtype=torch.int32, device=dev) \
+      if keep_cc else None
     pairs = torch.zeros((), dtype=torch.int64, device=dev)
     tabs, Ns, crcs = [], [], []
     for z0 in range(0, sz, step):
@@ -314,15 +307,21 @@ def _stage1_volume(zyx):
       pairs += p
       if z0:  # the pair across the seam with the batch before
         pairs += flat[z0 - 1, -1] == flat[z0, 0]
-      count("host_syncs")
-      tabs.append(component_labels(planes, cc, N).cpu().numpy())
+      if keep_cc:
+        ccs[z0:z0 + step] = cc
+      else:
+        count("host_syncs")
+        tabs.append(component_labels(planes, cc, N).cpu().numpy())
       Ns.append(N)
       crcs.append(crc)
-    tables = np.zeros((sz, max(t.shape[1] for t in tabs)), np.uint64)
-    for z0, t in zip(range(0, sz, step), tabs):
-      tables[z0:z0 + len(t), :t.shape[1]] = t.view(np.uint64)
+    tables = None
+    if not keep_cc:
+      tables = np.zeros((sz, max(t.shape[1] for t in tabs)), np.uint64)
+      for z0, t in zip(range(0, sz, step), tabs):
+        tables[z0:z0 + len(t), :t.shape[1]] = t.view(np.uint64)
     count("host_syncs", 3)  # N, the CRCs and the pairs to the host
-    return (packed, tables, torch.cat(Ns).cpu().numpy(),
+    return (packed, tables if ccs is None else ccs,
+            torch.cat(Ns).cpu().numpy(),
             torch.cat(crcs).cpu().numpy().astype(np.uint32), int(pairs))
 
 
@@ -363,6 +362,26 @@ def decline_reason(labels):
   return None
 
 
+def _zyx(labels, device):
+  """(labels as a tensor in their signed view, their contiguous (sz, sy,
+  sx) view): an F-order volume, or (B, sy*sx) rows reshaped and
+  permuted, is that view without a copy."""
+  t = _device_labels(labels, device)
+  zyx = t.permute(2, 1, 0)
+  if not zyx.is_contiguous():
+    zyx = zyx.contiguous()
+  return t, zyx
+
+
+def _flat_stream(t, zyx, parallel: int, fortran_order: bool):
+  sx, sy, sz = t.shape
+  packed, tables, N, crcs, pairs = _stage1_volume(zyx)
+  return assemble_flat_stream(
+    packed, tables, N, crcs, pairs, sx, sy, sz,
+    data_width=t.element_size(), fortran_order=fortran_order,
+    parallel=parallel)
+
+
 def encode_flat_device(labels, parallel: int = 0, fortran_order: bool = True,
                        device="cuda"):
   """compress for flat labels at markov order 0 with the per-voxel stages
@@ -374,15 +393,46 @@ def encode_flat_device(labels, parallel: int = 0, fortran_order: bool = True,
   reason = decline_reason(labels)
   if reason is not None:
     return _fallback("encode_flat_device", reason)
-  t = _device_labels(labels, device)
+  t, zyx = _zyx(labels, device)
+  return _flat_stream(t, zyx, parallel, fortran_order)
+
+
+def encode_pins_device(labels, parallel: int = 0, fortran_order: bool = True,
+                       device="cuda", bgcolor=None):
+  """compress(labels, allow_pins=1) at markov order 0 with the per-voxel
+  stages and the pins' column scan and cover index (ops/pins.py solve)
+  on a torch device; the fast solver's pick order, the trace and the
+  assembly on the host. labels as for encode_flat_device; bgcolor as
+  for compress. Returns the .ckl bytes, equal to codec.compress(labels,
+  allow_pins=1): a flat stream where the labels' pixel pairs pick the
+  flat format or there is one slice. None as for encode_flat_device."""
+  reason = decline_reason(labels)
+  if reason is not None:
+    return _fallback("encode_pins_device", reason)
+  t, zyx = _zyx(labels, device)
   sx, sy, sz = t.shape
-  # (z, y, x): an F-order volume, or (B, sy*sx) rows reshaped and
-  # permuted, is this view without a copy
-  zyx = t.permute(2, 1, 0)
-  if not zyx.is_contiguous():
-    zyx = zyx.contiguous()
-  packed, tables, N, crcs, pairs = _stage1_volume(zyx)
-  return assemble_flat_stream(
-    packed, tables, N, crcs, pairs, sx, sy, sz,
-    data_width=t.element_size(), fortran_order=fortran_order,
-    parallel=parallel)
+  pairs, top = format_stats(zyx.reshape(-1))
+  count("host_syncs", 2)
+  head = _codec.stream_header((sx, sy, sz), t.element_size(), int(top),
+                              int(pairs), fortran_order, allow_pins=1)
+  if head.label_format == LabelFormat.FLAT:
+    return _flat_stream(t, zyx, parallel, fortran_order)
+  packed, cc, N, crcs, _ = _stage1_volume(zyx, keep_cc=True)
+  n_total = int(N.sum())
+  # global ids: each slice's ids after the components of the slices
+  # before it
+  wide = torch.int32 if n_total < 2 ** 31 else torch.int64
+  base = torch.from_numpy(np.cumsum(N, dtype=np.int64) - N).to(cc.device)
+  cc = cc.to(wide)
+  cc += base[:, None].to(wide)
+  all_pins = _pins.solve(zyx.reshape(sz, sx * sy), cc, sx, sy, sz, n_total)
+  del cc
+  codes = _trace(packed, sx, sy, False, parallel)
+  if codes is None:
+    return None
+  with span("encode.assemble"):
+    labels_binary = _labels.encode_condensed_pins(
+      all_pins, sx, sy, sz, head.pin_index_width(), N, n_total,
+      width2dtype[head.stored_data_width], bgcolor is None,
+      0 if bgcolor is None else int(bgcolor))
+    return _codec.container(head, codes, labels_binary, crcs)

@@ -105,6 +105,8 @@ def _load():
   ]
   lib.crackle_crc32c.restype = ctypes.c_uint32
   lib.crackle_crc32c.argtypes = [p, i64]
+  lib.crackle_pins_pick.restype = i64
+  lib.crackle_pins_pick.argtypes = [p, p, i64, p, p, p, p, p]
 
   _lib = lib
   return _lib
@@ -391,3 +393,35 @@ def crc32c(data: bytes):
   if lib is None:
     return None
   return int(lib.crackle_crc32c(data, len(data)))
+
+
+def pins_pick(uni: np.ndarray, uoff: np.ndarray, choice: np.ndarray,
+              coff: np.ndarray, cids: np.ndarray):
+  """The fast pin solver's picks in C++ (ops/pins.py pick): returns
+  (picks int32, per-label counts int64), or None if the library is
+  missing. Raises OverflowError where a label's hash set overflows, as
+  rh_set.py does, and ValueError on a choice that does not cross its
+  component."""
+  lib = load()
+  if lib is None:
+    return None
+  uni = np.ascontiguousarray(uni, np.uint32)
+  uoff = np.ascontiguousarray(uoff, np.int64)
+  choice = np.ascontiguousarray(choice, np.int32)
+  coff = np.ascontiguousarray(coff, np.int64)
+  cids = np.ascontiguousarray(cids, np.uint32)
+  nlab = len(uoff) - 1
+  if nlab < 0 or uoff[0] != 0 or uoff[-1] != len(uni) or \
+     coff[-1] != len(cids) or (len(uni) and int(uni.max()) >= len(choice)) \
+     or (len(choice) and int(choice.max()) >= len(coff) - 1):
+    raise ValueError("pins_pick: inconsistent tables")
+  picks = np.zeros(max(len(uni), 1), np.int32)
+  npicks = np.zeros(max(nlab, 1), np.int64)
+  n = lib.crackle_pins_pick(_ptr(uni), _ptr(uoff), nlab, _ptr(choice),
+                            _ptr(coff), _ptr(cids), _ptr(picks),
+                            _ptr(npicks))
+  if n == -1:
+    raise OverflowError("robin_hood emulation: table overflow")
+  if n < 0:
+    raise ValueError("pins_pick: a pin does not cross its component")
+  return picks[:n], npicks[:nlab]

@@ -1444,3 +1444,205 @@ int64_t crackle_compress_stream(
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------
+// the fast pin solver's pick order (pins encode)
+// ---------------------------------------------------------------------
+
+namespace {
+
+// robin_hood::unordered_flat_set<uint32_t> as far as its iteration order
+// goes: insert, erase and begin(), the same semantics as
+// crackle_tpu_torch/ops/rh_set.py (murmur-style hash_int finalizer, 5
+// info bits, 0.8 max load factor, info-increment halving, backward-shift
+// deletion). Probe arithmetic runs in int64 where the stored info bytes
+// are masked to 8 bits, as there.
+struct RHSetU32 {
+  static constexpr uint64_t kMult0 = 0xC4CEB9FE1A85EC53ULL;
+  static constexpr uint64_t kMultStep = 0xC4CEB9FE1A85EC54ULL;
+  uint64_t mult = kMult0;
+  uint64_t mask = 0;
+  std::vector<uint16_t> info = std::vector<uint16_t>(8, 0);
+  std::vector<uint32_t> keys;
+  int64_t n = 0, max_allowed = 0;
+  int64_t info_inc = 32, info_shift = 0;
+
+  static int64_t max_allowed_of(int64_t buckets) {
+    return buckets * 80 / 100;
+  }
+  static int64_t buffered(int64_t buckets) {
+    return buckets + std::min<int64_t>(max_allowed_of(buckets), 0xFF);
+  }
+  void init_data(int64_t buckets) {
+    n = 0;
+    mask = (uint64_t)(buckets - 1);
+    max_allowed = max_allowed_of(buckets);
+    int64_t nb = buffered(buckets);
+    info.assign(nb + 1, 0);
+    info[nb] = 1;  // sentinel
+    keys.assign(nb + 1, 0);
+    info_inc = 32;
+    info_shift = 0;
+  }
+  static uint64_t hash_int(uint64_t x) {
+    x ^= x >> 33;
+    x *= 0xFF51AFD7ED558CCDULL;
+    x ^= x >> 33;
+    return x;
+  }
+  void key_to_idx(uint32_t key, int64_t& idx, int64_t& inf) const {
+    uint64_t h = hash_int(key) * mult;
+    h ^= h >> 33;
+    inf = info_inc + (int64_t)((h & 31) >> info_shift);
+    idx = (int64_t)((h >> 5) & mask);
+  }
+  void shift_up(int64_t start_idx, int64_t ins_idx) {
+    std::memmove(&keys[ins_idx + 1], &keys[ins_idx],
+                 (size_t)(start_idx - ins_idx) * sizeof(uint32_t));
+    for (int64_t idx = start_idx; idx != ins_idx; --idx) {
+      info[idx] = (uint16_t)((info[idx - 1] + info_inc) & 0xFF);
+      if (info[idx] + info_inc > 0xFF) max_allowed = 0;
+    }
+  }
+  void shift_down(int64_t idx) {
+    while (info[idx + 1] >= 2 * info_inc) {
+      info[idx] = (uint16_t)((info[idx + 1] - info_inc) & 0xFF);
+      keys[idx] = keys[idx + 1];
+      ++idx;
+    }
+    info[idx] = 0;
+  }
+  bool try_increase_info() {
+    if (info_inc <= 2) return false;
+    info_inc >>= 1;
+    ++info_shift;
+    int64_t nb = buffered((int64_t)mask + 1);
+    for (int64_t i = 0; i < nb; ++i) info[i] >>= 1;
+    info[nb] = 1;
+    max_allowed = max_allowed_of((int64_t)mask + 1);
+    return true;
+  }
+  bool insert_move(uint32_t key) {
+    if (max_allowed == 0 && !try_increase_info()) return false;
+    int64_t idx, inf;
+    key_to_idx(key, idx, inf);
+    while (inf <= info[idx]) {
+      ++idx;
+      inf += info_inc;
+    }
+    int64_t ins_idx = idx, ins_info = inf & 0xFF;
+    if (ins_info + info_inc > 0xFF) max_allowed = 0;
+    while (info[idx] != 0) ++idx;
+    if (idx != ins_idx) shift_up(idx, ins_idx);
+    info[ins_idx] = (uint16_t)ins_info;
+    keys[ins_idx] = key;
+    ++n;
+    return true;
+  }
+  bool rehash(int64_t buckets) {
+    std::vector<uint16_t> old_info = info;
+    std::vector<uint32_t> old_keys = keys;
+    int64_t old_nb = buffered((int64_t)mask + 1);
+    init_data(buckets);
+    for (int64_t i = 0; i < old_nb; ++i)
+      if (old_info[i] != 0 && !insert_move(old_keys[i])) return false;
+    return true;
+  }
+  bool increase_size() {
+    if (mask == 0) {
+      init_data(8);
+      return true;
+    }
+    int64_t cap = max_allowed_of((int64_t)mask + 1);
+    if (n < cap && try_increase_info()) return true;
+    if (n * 2 < cap) {
+      mult += kMultStep;  // pathological probing: a new multiplier
+      return rehash((int64_t)mask + 1);
+    }
+    return rehash(((int64_t)mask + 1) * 2);
+  }
+  bool add(uint32_t key) {
+    for (int attempt = 0; attempt < 256; ++attempt) {
+      int64_t idx, inf;
+      key_to_idx(key, idx, inf);
+      while (inf < info[idx]) {
+        ++idx;
+        inf += info_inc;
+      }
+      while (inf == info[idx]) {
+        if (keys[idx] == key) return true;
+        ++idx;
+        inf += info_inc;
+      }
+      if (n >= max_allowed) {
+        if (!increase_size()) return false;
+        continue;
+      }
+      int64_t ins_idx = idx, ins_info = inf;
+      if (ins_info + info_inc > 0xFF) max_allowed = 0;
+      while (info[idx] != 0) ++idx;
+      if (idx != ins_idx) shift_up(idx, ins_idx);
+      info[ins_idx] = (uint16_t)(ins_info & 0xFF);
+      keys[ins_idx] = key;
+      ++n;
+      return true;
+    }
+    return false;
+  }
+  void discard(uint32_t key) {
+    if (n == 0) return;
+    int64_t idx, inf;
+    key_to_idx(key, idx, inf);
+    while (true) {
+      if (inf == info[idx] && keys[idx] == key) {
+        shift_down(idx);
+        --n;
+        return;
+      }
+      ++idx;
+      inf += info_inc;
+      if (inf > info[idx]) return;
+    }
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// The fast pin solver's picks (pins.hpp find_suboptimal_pins), label by
+// label: label j's components uni[uoff[j] .. uoff[j + 1]) (ascending) go
+// into a robin-hood set; while it is not empty, the component in its
+// first occupied bucket names a pin, choice[component], whose components
+// cids[coff[k] .. coff[k + 1]) leave the set. picks (room for every
+// component) receives the pins in pick order, npicks[j] their count per
+// label. Returns the number of picks, -1 where the set overflows, -2
+// where a picked component's pin does not cross it.
+int64_t crackle_pins_pick(const uint32_t* uni, const int64_t* uoff,
+                          int64_t nlabels, const int32_t* choice,
+                          const int64_t* coff, const uint32_t* cids,
+                          int32_t* picks, int64_t* npicks) {
+  int64_t total = 0;
+  for (int64_t j = 0; j < nlabels; ++j) {
+    RHSetU32 rh;
+    for (int64_t i = uoff[j]; i < uoff[j + 1]; ++i)
+      if (!rh.add(uni[i])) return -1;
+    // deletions shift entries down onto the freed bucket and never
+    // below it, so the first occupied bucket only moves up
+    int64_t first = 0, got = 0;
+    while (rh.n) {
+      while (rh.info[first] == 0) ++first;
+      uint32_t key = rh.keys[first];
+      int32_t k = choice[key];
+      if (k < 0) return -2;
+      for (int64_t q = coff[k]; q < coff[k + 1]; ++q) rh.discard(cids[q]);
+      if (rh.info[first] != 0 && rh.keys[first] == key) return -2;
+      picks[total + got++] = k;
+    }
+    npicks[j] = got;
+    total += got;
+  }
+  return total;
+}
+
+}  // extern "C"

@@ -34,6 +34,8 @@ from test_torch_sharding import encode_volume as sharded_encode_volume
 from test_torch_sharding import ref_compress, roundtrip_case
 from test_torch_compact import many_closes_inputs
 from test_torch_pins import pins_volume
+from test_torch_pins_encode import CASES as PINS_CASES
+from test_torch_pins_encode import case_volume
 from test_torch_replay import islands_volume, random_stream, spiral_volume
 from test_torch_seams import SEAMS, edge_plant_inputs, seam_ids
 from test_torch_stats import STATS_EDGES, stats_edge_case
@@ -727,6 +729,52 @@ def test_encode_on_card_matches_host(dev, numpy_engine, shape, nl, seed,
   c = np.ascontiguousarray(vol)
   assert tenc.encode_flat_device(c, fortran_order=False, device=dev) == \
     codec.compress(c)
+
+
+@pytest.mark.parametrize("kind,args,dtype", PINS_CASES)
+def test_pins_encode_on_card_matches_host(dev, numpy_engine, kind, args,
+                                          dtype):
+  """compress(..., allow_pins=1) of a tensor on the card, with the pins'
+  column scan and cover index on the card, and encode_pins_device of
+  numpy input, against the port's host encoder."""
+  codec = numpy_engine
+  vol = case_volume(kind, args, dtype)
+  want = codec.compress(vol, allow_pins=1)
+  assert codec.header(want).label_format == 2
+  ct.reset_launches()
+  assert codec.compress(_on_card(vol, dev), allow_pins=1) == want
+  assert ct.LAUNCHES["ccl_paint"] == 1
+  assert tenc.encode_pins_device(vol, device=dev) == want
+
+
+def test_pins_encode_of_wide_slices_on_card(dev, numpy_engine):
+  """512^2 slices, 16 deep, of 8 x 8 x 4 blocks of 40 labels with ragged
+  edges: tens of thousands of components and pins, past the tests' CPU
+  sizes."""
+  rng = np.random.RandomState(41)
+  coarse = rng.randint(0, 40, (64, 64, 4)).astype(np.uint32)
+  vol = np.repeat(np.repeat(np.repeat(coarse, 8, 0), 8, 1), 4, 2)
+  for _ in range(4):
+    axis = rng.randint(0, 3)
+    vol = np.where(rng.rand(*vol.shape) < 0.5, np.roll(vol, 1, axis=axis),
+                   vol)
+  vol = np.asfortranarray(vol)
+  want = numpy_engine.compress(vol, allow_pins=1)
+  assert numpy_engine.header(want).label_format == 2
+  assert numpy_engine.compress(_on_card(vol, dev), allow_pins=1) == want
+
+
+def test_pins_compress_on_card_raises_where_encode_fails(dev, numpy_engine,
+                                                         monkeypatch):
+  """Labels on the card never go to the host pins encoder: a decline or
+  a trace that overflows raises with the reason."""
+  vol = case_volume(*PINS_CASES[2])
+  monkeypatch.setattr(tenc, "_trace", lambda *a, **k: None)
+  with pytest.raises(RuntimeError, match="the native trace overflowed"):
+    numpy_engine.compress(_on_card(vol, dev), allow_pins=1)
+  monkeypatch.setattr(tenc.native, "available", lambda: False)
+  with pytest.raises(RuntimeError, match="native trace library is missing"):
+    numpy_engine.compress(_on_card(vol, dev), allow_pins=1)
 
 
 def test_encode_1024_slices_on_card(dev, numpy_engine):

@@ -21,6 +21,7 @@ from crackle_tpu_torch.kernels import engine
 from crackle_tpu_torch.utils import profiling
 
 from test_jax_decode import random_volume
+from test_torch_pins_encode import smooth_volume
 
 DECODE_SPANS = {"codec.decompress", "codec.parse", "engine.prep",
                 "engine.upload", "decode.replay_ccl", "engine.crc_gate",
@@ -156,6 +157,87 @@ def test_encode_spans(tracing):
   # the N max and nonzero of the one batch, its table, and N, the CRCs
   # and the pairs to the host
   assert recs[1].counters["host_syncs"] == 6
+
+
+def pins_volume():
+  return smooth_volume((20, 18, 10), 4, 9, 12, np.uint8)
+
+
+def pins_stream():
+  binary = codec.compress(pins_volume(), allow_pins=1)
+  assert codec.header(binary).label_format == 2
+  return binary
+
+
+def test_pins_decode_spans_split_the_ccl_and_the_paint(tracing):
+  """A resident pins window: decode.pins_ccl, then decode.pins_paint
+  with the window's table slots, once each inside decode.replay_ccl;
+  one host sync a request, the gate's."""
+  binary = pins_stream()
+  st = engine.upload_stream(binary, "cpu")
+  with tracing():
+    for z0, z1 in ((0, 10), (2, 7)):
+      st.decode_window(z0, z1, check_crcs=True)
+  recs = profiling.spans()
+  roots = [s for s in recs if s.parent is None]
+  assert names(roots) == ["DeviceStream.decode_window"] * 2
+  for r, (z0, z1) in zip(roots, ((0, 10), (2, 7))):
+    kids = [s for s in recs if s.request == r.request and s is not r]
+    assert names(kids) == ["decode.replay_ccl", "decode.pins_ccl",
+                           "decode.pins_paint", "engine.crc_gate"]
+    for s in kids[1:3]:
+      assert ancestors(recs, s) == ["decode.replay_ccl",
+                                    "DeviceStream.decode_window"]
+    slots = sum(t[z0:z1].numel() for t in (st.pins[0], st.pins[2]))
+    assert kids[2].counters == {"pins_slots": slots}
+    assert sum(s.counters.get("host_syncs", 0) for s in kids) == 1
+
+
+def test_pins_window_decode_spans(torch_cpu):
+  """codec.decompress of a pins stream on the torch engine: the same two
+  spans inside decode.replay_ccl."""
+  with profiling.recording():
+    out = codec.decompress(pins_stream())
+  np.testing.assert_array_equal(out, pins_volume())
+  recs = profiling.spans()
+  for name in ("decode.pins_ccl", "decode.pins_paint"):
+    assert ancestors(recs, only(recs, name))[0] == "decode.replay_ccl"
+
+
+@pytest.mark.parametrize("on_tensor", [False, True])
+def test_pins_encode_spans_and_counters(on_tensor):
+  """The host encoder (numpy) and the device one (a tensor): encode.pins
+  holds encode.pins_columns and encode.pins_cover, and counts the
+  candidate and the chosen pins."""
+  vol = pins_volume()
+  with profiling.recording():
+    binary = codec.compress(torch.from_numpy(vol) if on_tensor else vol,
+                            allow_pins=1)
+  assert binary == pins_stream()
+  recs = profiling.spans()
+  pins = only(recs, "encode.pins")
+  assert ancestors(recs, pins) == ["codec.compress"]
+  for name in ("encode.pins_columns", "encode.pins_cover"):
+    assert ancestors(recs, only(recs, name))[0] == "encode.pins"
+  c = pins.counters
+  assert 0 < c["pins_chosen"] < c["pins_candidates"]
+  if on_tensor:
+    assert names(recs)[:2] == ["codec.compress", "encode.stage1"]
+
+
+def test_pins_spans_record_nothing_while_off(monkeypatch):
+  vol = pins_volume()
+  monkeypatch.setattr(torch.autograd.profiler, "record_function", Raises)
+  monkeypatch.setattr(torch.cuda, "Event", Raises)
+  with profiling.recording():
+    with profiling.span("before"):
+      pass
+  kept = list(profiling.spans())
+  binary = codec.compress(torch.from_numpy(vol), allow_pins=1)
+  assert codec.compress(vol, allow_pins=1) == binary
+  st = engine.upload_stream(binary, "cpu")
+  st.decode_window(0, 10, check_crcs=True)
+  assert list(profiling.spans()) == kept
 
 
 def test_spans_close_on_an_exception(torch_cpu):
