@@ -13,12 +13,12 @@ Phases, one line each (phases 8 to 19 several):
      their depth tables in the scratch tensor, replay_positions_compact
      in windows of 64 positions, and the CCL kernels at a 64-pixel
      tile on the 256^2 x 128 VCG and on a 512^2 snake and checkerboard,
-     at both tiles); ccl_min -> roots_from_tgt -> plant against
-     ccl_paint and the compact-cancel kernels' edge ids against
-     replay_positions' on the same inputs. Meanwhile two child processes
-     run the host oracle on the port's own host layer
-     (crackle_tpu_torch.codec and its native library): decompress, the
-     condensed-pins compress of the 512^3 volume, numpy label
+     at both tiles, ccl_min_roots among them); ccl_min ->
+     roots_from_tgt -> plant against ccl_paint and the compact-cancel
+     kernels' edge ids against replay_positions' on the same inputs.
+     Meanwhile two child processes run the host oracle on the port's
+     own host layer (crackle_tpu_torch.codec and its native library):
+     decompress, the condensed-pins compress of the 512^3 volume, numpy label
      statistics of it and cutouts of the decoded volumes. Kernel,
      plain and library-call times with CUDA events at the 512^3 slice
      shapes, once the children have ended (each kernel and the library
@@ -55,8 +55,9 @@ Phases, one line each (phases 8 to 19 several):
  10. the pins path: the 512^3 pins stream and the 256^2 x 128 pins
      volume uploaded and decoded (whole and a window) against the
      oracle, its launch counts, steady times and stage times, and
-     ccl_min + plant against ccl_paint twice on the same VCG, and the
-     shares of the bound of ccl_min and plant at B = 512;
+     ccl_min_roots + plant against ccl_paint twice on the same VCG, and
+     the shares of the bound of ccl_min, ccl_min_roots and plant at
+     B = 512;
  11. analytics: voxel_counts, centroids and bounding_boxes of the flat
      512^3 stream against the numpy oracle (counts and boxes equal,
      centroids within rtol 1e-12), their wall times, launch counts and
@@ -466,7 +467,9 @@ if loaded:
 
 KERNELS = [
   # name, source, the TPU kernel it replaces on the 512^3 path (and the
-  # 256^2 class's one), the path whose run gives its launch count
+  # 256^2 class's one), the path whose run gives its launch count ("" for
+  # none: ccl_min, held to the reference's (L, tgt), which no path of the
+  # port launches since the pins path takes ccl_min_roots)
   ("replay_keys", "crackle_tpu_torch/csrc/replay.cu",
    "crackle_tpu/kernels/replay_big.py:177",
    "crackle_tpu/kernels/replay_pallas.py:205", "flat"),
@@ -481,7 +484,10 @@ KERNELS = [
    "crackle_tpu/kernels/ccl_pallas.py:417",
    "crackle_tpu/kernels/ccl_pallas.py:337", "flat"),
   ("ccl_min", "crackle_tpu_torch/csrc/ccl.cu",
-   "crackle_tpu/kernels/ccl_pallas.py:476", "", "pins"),
+   "crackle_tpu/kernels/ccl_pallas.py:476", "", ""),
+  ("ccl_min_roots", "crackle_tpu_torch/csrc/ccl.cu",
+   "crackle_tpu/kernels/ccl_pallas.py:476 and :626 roots_from_tgt (XLA)",
+   "", "pins"),
   ("plant", "crackle_tpu_torch/csrc/ccl.cu",
    "crackle_tpu/kernels/ccl_pallas.py:541", "", "pins"),
   ("slice_stats", "crackle_tpu_torch/csrc/stats.cu",
@@ -505,7 +511,7 @@ PATHS = {
   "compact": ("replay_keys", "cancel_sums", "compact_closes",
               "replay_positions_compact", "paint_vcg", "ccl_paint",
               "crc32c_rows"),
-  "pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min",
+  "pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min_roots",
            "plant", "crc32c_rows"),
   "analytics": ("replay_keys", "replay_positions", "paint_vcg",
                 "ccl_paint", "slice_stats"),
@@ -514,8 +520,8 @@ PATHS = {
   # the labels too, from the same VCG
   "vcg4": ("replay_keys", "replay_positions", "paint_vcg"),
   "vcg6": ("replay_keys", "replay_positions", "paint_vcg", "ccl_paint"),
-  "vcg6 pins": ("replay_keys", "replay_positions", "paint_vcg", "ccl_min",
-                "plant"),
+  "vcg6 pins": ("replay_keys", "replay_positions", "paint_vcg",
+                "ccl_min_roots", "plant"),
 }
 
 
@@ -729,7 +735,11 @@ def compare_kernels(binary, z1, dev, tag, errs):
                         require_equal(f"{tag} L", L, Lp),
                         require_equal(f"{tag} tgt", tgt, tgtp))
   cap2 = ccl._pow2_cap(cap_n)
-  roots, _ = ccl.roots_from_tgt(tgtp, cap2)
+  roots, Nr = ccl.roots_from_tgt(tgtp, cap2)
+  for name, a, b in zip(("L", "roots", "N"), ccl.ccl_min_roots(vp, cap2),
+                        (Lp, roots, Nr)):
+    errs["ccl_min_roots"] = max(errs["ccl_min_roots"], require_equal(
+      f"{tag} ccl_min_roots {name}", a, b))
   rng = np.random.RandomState(7)
   for K in (0, 1, 2):
     TK = plain_table(rng, z1, K, cap2, dev) if K else None
@@ -769,24 +779,28 @@ def snake_vcg(B, sy, sx):
 
 
 def compare_ccl_tiles(vcg, dev, tag, n_want=None):
-  """ccl_paint (K = 0 and 1) and ccl_min at ccl.TILE_PIX = 64 and at the
-  default tile against the plain versions; returns the largest
-  difference. n_want, where given, is every slice's component count."""
+  """ccl_paint (K = 0 and 1), ccl_min and ccl_min_roots (1024 roots) at
+  ccl.TILE_PIX = 64 and at the default tile against the plain versions;
+  returns the largest difference. n_want, where given, is every slice's
+  component count."""
   T = plain_table(np.random.RandomState(64), vcg.shape[0], 1, 1024, dev)
   cc, N, pt = ccl.ccl_paint_plain(vcg, T)
   if n_want is not None and N.tolist() != [n_want] * len(N):
     raise AssertionError(f"{tag}: N {N.tolist()}, want {n_want}")
   L, tgt = ccl.ccl_min_plain(vcg)
+  roots, _ = ccl.roots_from_tgt(tgt, 1024)
   default = ccl.TILE_PIX
   err = 0.0
   for tile in (64, default):
     ccl.TILE_PIX = tile
     try:
-      got = ccl.ccl_paint(vcg, T) + ccl.ccl_paint(vcg)[:2] + ccl.ccl_min(vcg)
+      got = (ccl.ccl_paint(vcg, T) + ccl.ccl_paint(vcg)[:2] + ccl.ccl_min(vcg)
+             + ccl.ccl_min_roots(vcg, 1024))
     finally:
       ccl.TILE_PIX = default
     for name, a, b in zip(("cc", "N", "painted", "cc K=0", "N K=0", "L",
-                           "tgt"), got, (cc, N, pt, cc, N, L, tgt)):
+                           "tgt", "roots' L", "roots", "roots' N"), got,
+                          (cc, N, pt, cc, N, L, tgt, L, roots, N)):
       err = max(err, require_equal(f"{tag} tile {tile} {name}", a, b))
   return err
 
@@ -807,8 +821,8 @@ OPS_PER_S = 67e12
 # integer operations per element (codepoint, edge id or pixel) of each
 # kernel, a floor counted from its source
 OPS_PER = {"replay_keys": 40, "replay_positions": 30, "paint_vcg": 15,
-           "ccl_paint": 20, "ccl_min": 20, "plant": 30, "slice_stats": 10,
-           "cancel_sums": 50, "compact_closes": 3,
+           "ccl_paint": 20, "ccl_min": 20, "ccl_min_roots": 20, "plant": 30,
+           "slice_stats": 10, "cancel_sums": 50, "compact_closes": 3,
            "replay_positions_compact": 40, "crc32c_rows": 20}
 
 
@@ -856,6 +870,7 @@ def kernel_io(t, cp, idsp, vp, Lp, roots, ccp, cap_s, densep, tablesp,
     "paint_vcg": (nbytes_of(idsp, vp), B * CAP + npx),
     "ccl_paint": (nbytes_of(vp, t["T"]) + npx * 4 * (1 + K) + B * 4, npx),
     "ccl_min": (nbytes_of(vp) + 2 * npx * 4, npx),
+    "ccl_min_roots": (nbytes_of(vp, roots) + npx * 4, npx),
     "plant": (nbytes_of(Lp, roots, t["T"]) + npx * 4 * (1 + K), npx),
     "slice_stats": slice_stats_io(ccp, cap_s),
     "cancel_sums": (nbytes_of(evp, cp, drp, densep), B * CAP),
@@ -1128,8 +1143,8 @@ def run(dev, card, kind, oracles, paths, t_or):
       ("512^2 checkerboard", torch.zeros((2, 512, 512), dtype=torch.int32,
                                          device=dev), 512 * 512)):
     e = compare_ccl_tiles(v, dev, tag, n_want)
-    errs["ccl_paint"] = max(errs["ccl_paint"], e)
-    errs["ccl_min"] = max(errs["ccl_min"], e)
+    for name in ("ccl_paint", "ccl_min", "ccl_min_roots"):
+      errs[name] = max(errs[name], e)
   say(3, f"kernels bit-equal to their plain versions on 512^3[:32], "
          f"256^2x128, u64[:32], pins 256^2x128, the replay at tile 64 and "
          f"with its depth table in the scratch tensor, "
@@ -1164,6 +1179,7 @@ def run(dev, card, kind, oracles, paths, t_or):
    tablesp, evp, drp) = sub
   Tt = t["T"]
   ccap = tablesp.shape[2]
+  rcap = roots.shape[1]
   args = {
     "replay_keys": (lambda: replay.replay_keys(
       t["packed"], t["nbytes"], t["n_chains"]), lambda: replay.
@@ -1176,6 +1192,8 @@ def run(dev, card, kind, oracles, paths, t_or):
     "ccl_paint": (lambda: ccl.ccl_paint(vp, Tt),
                   lambda: ccl.ccl_paint_plain(vp, Tt)),
     "ccl_min": (lambda: ccl.ccl_min(vp), lambda: ccl.ccl_min_plain(vp)),
+    "ccl_min_roots": (lambda: ccl.ccl_min_roots(vp, rcap), lambda: ccl.
+                      roots_from_tgt(ccl.ccl_min_plain(vp)[1], rcap)),
     "plant": (lambda: ccl.plant(Lp, roots, Tt),
               lambda: ccl.plant_plain(Lp, roots, Tt)),
     "slice_stats": (lambda: stats.slice_stats(ccp, sx, sy, cap_s),
@@ -1437,13 +1455,15 @@ def run(dev, card, kind, oracles, paths, t_or):
   ptimes = pins_stage_times(ps)
   say(10, "pins 512^3 stage ms at B=512 (CUDA events): " + ", ".join(
     f"{k} {v:.3f}" for k, v in ptimes.items() if not k.startswith("v"))
-      + f"; CCL and paint as ccl_min + roots_from_tgt + plant x2 "
+      + f"; CCL and paint as ccl_min_roots + plant x2 "
         f"{ptimes['v2']:.3f} ms, as ccl_paint K=0 + ccl_paint K=1 "
         f"{ptimes['v1']:.3f} ms")
   # bounds from the flat stream's tensors of the same volume (plant: its
   # K = 1 table and roots, which differ from the pins ones only in the
   # roots' few kilobytes)
-  for name, stage in (("ccl_min", "ccl_min"), ("plant", "plant K=1")):
+  for name, stage in (("ccl_min", "ccl_min"),
+                      ("ccl_min_roots", "ccl_min_roots"),
+                      ("plant", "plant K=1")):
     full[name] = (512, ptimes[stage], bound(name, *io512[name])[2])
     say(10, "pins 512^3 stage " + share_line(name, ptimes[stage],
                                              io512[name], 512))
@@ -1544,7 +1564,8 @@ def run(dev, card, kind, oracles, paths, t_or):
   out = []
   for name, src, repl, also, path in KERNELS:
     row = {"name": name, "route": "cuda", "source": src, "replaces": repl,
-           "launches": launches[path][name], "launch_path": path,
+           "launches": launches[path][name] if path else 0,
+           "launch_path": path or None,
            "max_abs_err": errs[name], "ms": times[name][0],
            "plain_ms": times[name][1], "bound_ms": bounds[name][2],
            "bound_by": bounds[name][3], "library_ms": library[name],
@@ -2061,7 +2082,7 @@ SHARD_LAUNCHES = {
   "flat": {"replay_keys": 1, "replay_positions": 1, "paint_vcg": 1,
            "ccl_paint": 1},
   "pins": {"replay_keys": 1, "replay_positions": 1, "paint_vcg": 1,
-           "ccl_min": 1, "plant": 2},
+           "ccl_min_roots": 1, "plant": 2},
 }
 
 # seconds a rank of phase 17(c) may take
@@ -3344,6 +3365,7 @@ DEVICE_KERNELS = {
   "ccl_paint": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank",
                 "ccl_fill"),
   "ccl_min": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank"),
+  "ccl_min_roots": ("ccl_local", "ccl_merge", "ccl_count", "ccl_rank"),
   "plant": ("plant_map", "plant"),
   "slice_stats": ("stats_init", "slice_stats"),
   "cancel_sums": ("cancel_sums",),
@@ -3445,8 +3467,9 @@ def compact_design_line(s):
 
 def pins_stage_times(s):
   """Device ms of each stage of one full-volume pins decode, and of
-  its CCL and paint done as v2 (ccl_min, the roots, two plants) and as
-  v1 (ccl_paint without and with the label table)."""
+  its CCL and paint done as v2 (ccl_min_roots, two plants) and as v1
+  (ccl_paint without and with the label table); ccl_min and
+  roots_from_tgt are the two steps ccl_min_roots took the place of."""
   h = s.head
   pl_, pb_, si_, sl_, bg32, cap_n = s.pins
   B = h.sz
@@ -3454,8 +3477,8 @@ def pins_stage_times(s):
   ev, cls, dr = replay.replay_keys(s.packed, s.nbytes, s.n_chains)
   ids = replay.replay_positions(ev, cls, dr, s.nodes, h.sx, h.sy)
   vcg = replay.paint_vcg(ids, h.sx, h.sy, s.permissible)
-  L, tgt = ccl.ccl_min(vcg)
-  roots, _ = ccl.roots_from_tgt(tgt, cap2)
+  _, tgt = ccl.ccl_min(vcg)
+  L, roots, _ = ccl.ccl_min_roots(vcg, cap2)
   cc, _ = ccl.plant(L, roots)
   Tp = torch.zeros((B, 1, cap2), dtype=torch.int32, device=s.device)
   T1 = Tp[:, :, :cap_n].contiguous()
@@ -3464,8 +3487,7 @@ def pins_stage_times(s):
     return dec.pins_label_table(cc, pl_, pb_, si_, sl_, bg32, cap_n)
 
   def v2():
-    L2, t2 = ccl.ccl_min(vcg)
-    r2, _ = ccl.roots_from_tgt(t2, cap2)
+    L2, r2, _ = ccl.ccl_min_roots(vcg, cap2)
     ccl.plant(L2, r2)
     ccl.plant(L2, r2, Tp)
 
@@ -3482,6 +3504,7 @@ def pins_stage_times(s):
       ids, h.sx, h.sy, s.permissible), 3),
     "ccl_min": cuda_ms(lambda: ccl.ccl_min(vcg), 3),
     "roots_from_tgt": cuda_ms(lambda: ccl.roots_from_tgt(tgt, cap2), 3),
+    "ccl_min_roots": cuda_ms(lambda: ccl.ccl_min_roots(vcg, cap2), 3),
     "plant K=0": cuda_ms(lambda: ccl.plant(L, roots), 3),
     "label table": cuda_ms(table, 3),
     "plant K=1": cuda_ms(lambda: ccl.plant(L, roots, Tp), 3),

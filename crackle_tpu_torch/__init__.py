@@ -59,7 +59,7 @@ from .codec import (
 from .headers import CrackleHeader
 from .kernels._build import LAUNCHES, reset_launches
 from .kernels.ccl import (
-  ccl_min, ccl_paint, ccl_paint_v2, plant, roots_from_tgt,
+  ccl_min, ccl_min_roots, ccl_paint, ccl_paint_v2, plant, roots_from_tgt,
 )
 from .kernels.decode import (
   decode_slices_full, decode_slices_full_pins, decode_slices_full_plant,
@@ -104,7 +104,8 @@ __all__ = [
   "decode_pins", "CrackleHeader", "save", "load", "aload", "bload",
   "rload", "save_numpy", "__version__",
   "get_engine", "set_engine", "LAUNCHES",
-  "reset_launches", "ccl_min", "ccl_paint", "ccl_paint_v2", "plant",
+  "reset_launches", "ccl_min", "ccl_min_roots", "ccl_paint",
+  "ccl_paint_v2", "plant",
   "roots_from_tgt", "decode_slices_full", "decode_slices_full_pins",
   "decode_slices_full_plant", "decode_slices_to_ccl", "CrackFormat",
   "DeviceStream", "FormatError", "decode_window", "decode_window_ccl",

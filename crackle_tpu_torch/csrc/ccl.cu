@@ -14,7 +14,10 @@
 //
 // ccl_min replaces ccl_pallas._ccl_min_kernel: the same union-find and
 // root rank, stopped before the renumber. It writes the min-index image
-// L and tgt = first-visit rank at roots, -1 elsewhere.
+// L and tgt = first-visit rank at roots, -1 elsewhere. ccl_min_roots
+// runs the same passes but writes, in place of tgt, what ccl_pallas.
+// roots_from_tgt makes of it: each slice's roots in rank order (its
+// sorted component minima) and their count N.
 //
 // The design: a slice is cut into tiles of `tile` consecutive raster
 // pixels (ccl.TILE_PIX, a power of two; a row may split across tiles),
@@ -36,8 +39,9 @@
 //              roots), so no find is needed;
 //   ccl_rank   each block sums the counts of the tiles before it, then
 //              ranks its roots by a block scan: cc at roots (ccl_paint)
-//              or tgt, and L[p] = find(p) (ccl_min); N from the last
-//              tile;
+//              or tgt, and L[p] = find(p) (ccl_min), or roots[rank] = p
+//              and L[p] = find(p) (ccl_min_roots); N from the last
+//              tile, which also pads the roots past N;
 //   ccl_fill   (ccl_paint) cc[p] = cc[find(L[p])] and the paint, with
 //              T staged in shared memory.
 //
@@ -302,16 +306,24 @@ ccl_count_kernel(const int* __restrict__ Lbuf, int* __restrict__ counts,
   if (threadIdx.x == 0) counts[(size_t)b * gridDim.x + blockIdx.x] = tot;
 }
 
+// What the rank pass writes besides N: cc at the roots (ccl_paint), tgt
+// and L = find (ccl_min), or the roots and L = find (ccl_min_roots).
+enum RankOut { RANK_CC, RANK_TGT, RANK_ROOTS };
+
 // grid (tiles, B). The raster rank of each root: the roots of the
 // earlier tiles (from counts) plus a block scan inside the tile.
-// MIN (ccl_min): tgt[p] = rank at roots, -1 elsewhere, and L[p] =
-// find(p). Else (ccl_paint): out[p] = rank at roots only. N[b] (when
+// RANK_CC: out[p] = rank at roots only. RANK_TGT: out[p] = rank at
+// roots, -1 elsewhere, and L[p] = find(p). RANK_ROOTS: out is (B, cap):
+// out[b, rank] = p at each root whose rank is below cap (the rest are
+// dropped), L[p] = find(p), and the slice's last tile pads out[b, N..cap)
+// with n; ranks are dense, so every entry is written once. N[b] (when
 // given) is the slice's root count.
-template <bool MIN>
-__global__ void __launch_bounds__(CCL_MAX_THREADS)
-ccl_rank_kernel(int* __restrict__ Lbuf, const int* __restrict__ counts,
-                int* __restrict__ out, int* __restrict__ N, int n,
-                int tile) {
+template <RankOut OUT>
+__device__ __forceinline__ void rank_tile(int* __restrict__ Lbuf,
+                                          const int* __restrict__ counts,
+                                          int* __restrict__ out,
+                                          int* __restrict__ N, int n,
+                                          int tile, int cap) {
   __shared__ int warp[MAX_WARPS];
   const int b = blockIdx.y;
   const int t = blockIdx.x;
@@ -319,7 +331,8 @@ ccl_rank_kernel(int* __restrict__ Lbuf, const int* __restrict__ counts,
   const int len = min(tile, n - p0);
   int* Ls = Lbuf + (size_t)b * n;
   int* L = Ls + p0;
-  int* o = out + (size_t)b * n + p0;
+  int* o = OUT == RANK_ROOTS ? out + (size_t)b * cap
+                              : out + (size_t)b * n + p0;
 
   int before = 0;
   for (int j = threadIdx.x; j < t; j += blockDim.x)
@@ -336,24 +349,51 @@ ccl_rank_kernel(int* __restrict__ Lbuf, const int* __restrict__ counts,
     for (int k = 0; k < 4; ++k) c += l[k] == p0 + i + k;
     int tot;
     int r = carry + block_scan(c, 0, Add(), warp, &tot) - c;
-    if (MIN) {
+    if (OUT == RANK_CC) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (l[k] == p0 + i + k) o[i + k] = r++;
+    } else {
       int tg[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const bool root = l[k] == p0 + i + k;
-        tg[k] = root ? r++ : -1;
+        if (OUT == RANK_TGT) {
+          tg[k] = root ? r++ : -1;
+        } else if (root) {
+          if (r < cap) o[r] = p0 + i + k;
+          ++r;
+        }
         if (!root && i + k < len) l[k] = find_settled(Ls, l[k]);
       }
-      store4(o, i, len, tg);
+      if (OUT == RANK_TGT) store4(o, i, len, tg);
       store4(L, i, len, l);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        if (l[k] == p0 + i + k) o[i + k] = r++;
     }
     carry += tot;
   }
-  if (N && t == gridDim.x - 1 && threadIdx.x == 0) N[b] = carry;
+  if (t == gridDim.x - 1) {
+    if (N && threadIdx.x == 0) N[b] = carry;
+    if (OUT == RANK_ROOTS)
+      for (int r = carry + threadIdx.x; r < cap; r += blockDim.x) o[r] = n;
+  }
+}
+
+// ccl_paint (MIN false) and ccl_min (MIN true): rank_tile's RANK_CC and
+// RANK_TGT.
+template <bool MIN>
+__global__ void __launch_bounds__(CCL_MAX_THREADS)
+ccl_rank_kernel(int* __restrict__ Lbuf, const int* __restrict__ counts,
+                int* __restrict__ out, int* __restrict__ N, int n,
+                int tile) {
+  rank_tile<MIN ? RANK_TGT : RANK_CC>(Lbuf, counts, out, N, n, tile, 0);
+}
+
+// ccl_min_roots: rank_tile's RANK_ROOTS into roots (B, cap).
+__global__ void __launch_bounds__(CCL_MAX_THREADS)
+ccl_rank_kernel(int* __restrict__ Lbuf, const int* __restrict__ counts,
+                int* __restrict__ roots, int* __restrict__ N, int n,
+                int tile, int cap) {
+  rank_tile<RANK_ROOTS>(Lbuf, counts, roots, N, n, tile, cap);
 }
 
 // grid (tiles, B); dynamic shared K * cap_n ints. cc[p] = cc[root of
@@ -397,9 +437,10 @@ ccl_fill_kernel(const int* __restrict__ Lbuf, const int* __restrict__ T,
   }
 }
 
-// ccl_local then ccl_merge on grid (tiles, B); returns the first error.
-int converge_launch(const int* vcg, int* L, int B, int sx, int n, int tile,
-                    cudaStream_t stream) {
+// ccl_local, ccl_merge then ccl_count on grid (tiles, B); returns the
+// first error.
+int converge_launch(const int* vcg, int* L, int* counts, int B, int sx,
+                    int n, int tile, cudaStream_t stream) {
   const dim3 grid((n + tile - 1) / tile, B);
   const int smem = tile * 8;  // int parents, two ushort lists
   if (smem > 48 * 1024) {
@@ -412,6 +453,9 @@ int converge_launch(const int* vcg, int* L, int B, int sx, int n, int tile,
   int err = (int)cudaGetLastError();
   if (err) return err;
   ccl_merge_kernel<<<grid, MERGE_THREADS, 0, stream>>>(vcg, L, sx, n, tile);
+  if ((err = (int)cudaGetLastError())) return err;
+  ccl_count_kernel<<<grid, tile_threads(tile), 0, stream>>>(L, counts, n,
+                                                             tile);
   return (int)cudaGetLastError();
 }
 
@@ -494,11 +538,9 @@ extern "C" int ccl_paint_launch(const void* vcg, const void* T, void* L,
   const int n = sx * sy;
   const dim3 grid((n + tile - 1) / tile, B);
   const int threads = tile_threads(tile);
-  int err = converge_launch((const int*)vcg, (int*)L, B, sx, n, tile, s);
+  int err = converge_launch((const int*)vcg, (int*)L, (int*)counts, B, sx, n,
+                            tile, s);
   if (err) return err;
-  ccl_count_kernel<<<grid, threads, 0, s>>>((const int*)L, (int*)counts, n,
-                                            tile);
-  if ((err = (int)cudaGetLastError())) return err;
   ccl_rank_kernel<false><<<grid, threads, 0, s>>>(
       (int*)L, (const int*)counts, (int*)cc, (int*)N, n, tile);
   if ((err = (int)cudaGetLastError())) return err;
@@ -514,14 +556,27 @@ extern "C" int ccl_min_launch(const void* vcg, void* L, void* counts,
   const cudaStream_t s = (cudaStream_t)stream;
   const int n = sx * sy;
   const dim3 grid((n + tile - 1) / tile, B);
-  const int threads = tile_threads(tile);
-  int err = converge_launch((const int*)vcg, (int*)L, B, sx, n, tile, s);
+  int err = converge_launch((const int*)vcg, (int*)L, (int*)counts, B, sx, n,
+                            tile, s);
   if (err) return err;
-  ccl_count_kernel<<<grid, threads, 0, s>>>((const int*)L, (int*)counts, n,
-                                            tile);
-  if ((err = (int)cudaGetLastError())) return err;
-  ccl_rank_kernel<true><<<grid, threads, 0, s>>>(
+  ccl_rank_kernel<true><<<grid, tile_threads(tile), 0, s>>>(
       (int*)L, (const int*)counts, (int*)tgt, nullptr, n, tile);
+  return (int)cudaGetLastError();
+}
+
+// ccl_min with roots (B, cap) and N (B,) in place of tgt.
+extern "C" int ccl_min_roots_launch(const void* vcg, void* L, void* counts,
+                                    void* roots, void* N, int B, int sx,
+                                    int sy, int cap, int tile,
+                                    void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int n = sx * sy;
+  const dim3 grid((n + tile - 1) / tile, B);
+  int err = converge_launch((const int*)vcg, (int*)L, (int*)counts, B, sx, n,
+                            tile, s);
+  if (err) return err;
+  ccl_rank_kernel<<<grid, tile_threads(tile), 0, s>>>(
+      (int*)L, (const int*)counts, (int*)roots, (int*)N, n, tile, cap);
   return (int)cudaGetLastError();
 }
 

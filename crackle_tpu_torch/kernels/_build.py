@@ -29,8 +29,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset_launches(); each wrapper
 # adds one where it launches its kernel and nowhere else
 LAUNCHES = {"replay_keys": 0, "replay_positions": 0, "paint_vcg": 0,
-            "ccl_paint": 0, "ccl_min": 0, "plant": 0, "slice_stats": 0,
-            "cancel_sums": 0, "compact_closes": 0,
+            "ccl_paint": 0, "ccl_min": 0, "ccl_min_roots": 0, "plant": 0,
+            "slice_stats": 0, "cancel_sums": 0, "compact_closes": 0,
             "replay_positions_compact": 0, "crc32c_rows": 0}
 
 # wall seconds the last build took (0.0 when it was found built)
@@ -56,6 +56,8 @@ _SIGNATURES = {
                        _P],
   # vcg, L, counts, tgt, B, sx, sy, tile, stream
   "ccl_min_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+  # vcg, L, counts, roots, N, B, sx, sy, cap, tile, stream
+  "ccl_min_roots_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
   # L, roots, T, map, cc, painted, B, n, K, cap_n, span, vec, stream
   "plant_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
   # cc, out, B, sx, sy, cap_n, band_rows, stream

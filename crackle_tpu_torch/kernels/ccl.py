@@ -3,9 +3,10 @@
 Counterpart of crackle_tpu/kernels/ccl_pallas.py: ccl_batch_traced and
 ccl_paint_traced (``ccl_paint``), and the v2 split ccl_min_traced,
 roots_from_tgt and plant_traced (``ccl_min``, ``roots_from_tgt``,
-``plant``). The CCL kernels (csrc/ccl.cu) run a union-find with union
-by min, first inside tiles of TILE_PIX consecutive raster pixels in
-shared memory, then across the tiles' seams in device memory; the plain
+``plant``; ``ccl_min_roots`` is the first two in one launch). The CCL
+kernels (csrc/ccl.cu) run a union-find with union by min, first inside
+tiles of TILE_PIX consecutive raster pixels in shared memory, then
+across the tiles' seams in device memory; the plain
 versions below follow decode._ccl_batch: alternating row/column
 segmented-min sweeps to a fixed point, then the first-visit renumber,
 plus the table paint.
@@ -187,6 +188,39 @@ def ccl_min(vcg):
   return L, tgt
 
 
+def ccl_min_roots(vcg, cap_n: int):
+  """Kernel 5 with the roots: vcg (B, sy, sx) int32 -> (L (B, sy, sx),
+  roots (B, cap_n), N (B,)), all int32: ccl_min's L, and what
+  roots_from_tgt(tgt, cap_n) makes of its tgt, written by the rank pass
+  itself, which writes no tgt: each slice's component minima in
+  first-visit order, padded with sy*sx, ranks at or past cap_n dropped,
+  N the full root count."""
+  _check_vcg("ccl_min_roots", vcg)
+  if cap_n < 1:
+    raise ValueError(f"ccl_min_roots: cap_n must be at least 1: {cap_n}")
+  if vcg.device.type != "cuda":
+    L, tgt = ccl_min_plain(vcg)
+    return (L,) + roots_from_tgt(tgt, cap_n)
+  B, sy, sx = vcg.shape
+  dev = vcg.device
+  tile, tiles = _tiles("ccl_min_roots", vcg)
+  L = torch.empty_like(vcg)
+  roots = torch.empty((B, cap_n), dtype=torch.int32, device=dev)
+  N = torch.empty((B,), dtype=torch.int32, device=dev)
+  if B and sx * sy:
+    counts = torch.empty((B, tiles), dtype=torch.int32, device=dev)
+    err = _build.library().ccl_min_roots_launch(
+      vcg.data_ptr(), L.data_ptr(), counts.data_ptr(), roots.data_ptr(),
+      N.data_ptr(), B, sx, sy, cap_n, tile,
+      torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("ccl_min_roots", err)
+    _build.LAUNCHES["ccl_min_roots"] += 1
+  else:
+    roots.fill_(sx * sy)
+    N.zero_()
+  return L, roots, N
+
+
 def roots_from_tgt(tgt, cap_n: int):
   """Sorted component minima per slice (first-visit order), padded with
   n = sy*sx, from ccl_min's tgt: roots[b, tgt[b, p]] = p. Returns
@@ -281,14 +315,13 @@ def plant(L, roots, T=None):
 
 
 def ccl_paint_v2(vcg, T):
-  """ccl_min -> roots_from_tgt -> plant: the same (cc, N, painted) as
-  ccl_paint(vcg, T) from one converge pass and a plant
-  (ccl_pallas.ccl_paint_v2)."""
+  """ccl_min_roots -> plant: the same (cc, N, painted) as ccl_paint(vcg,
+  T) from one converge pass and a plant (ccl_pallas.ccl_paint_v2, whose
+  first two steps are ccl_min_traced and roots_from_tgt)."""
   cap_n = T.shape[2]
   cap2 = _pow2_cap(cap_n)
   if cap2 != cap_n:
     T = torch.nn.functional.pad(T, (0, cap2 - cap_n))
-  L, tgt = ccl_min(vcg)
-  roots, N = roots_from_tgt(tgt, cap2)
+  L, roots, N = ccl_min_roots(vcg, cap2)
   cc, painted = plant(L, roots, T)
   return cc, N, painted

@@ -156,11 +156,12 @@ def decode_slices_full_pins(packed, nbytes, nodes, n_chains, pin_locs,
 
   The reference's default CCL here is v1 (decode.py:42-43), which runs
   the whole CCL twice per window: once for cc, once more to paint. The
-  port takes v2 where cap_n <= PAINT_CAP_N: one converge pass
-  (ccl_min), the roots, and two plants from the same min-index image,
-  the first for cc, the second for the labels. The outputs are the
-  same; one whole CCL per window is saved. Past PAINT_CAP_N it takes
-  the reference's else-branch: ccl_paint for cc, then a gather.
+  port takes v2 where cap_n <= PAINT_CAP_N: one converge pass whose
+  rank pass also writes the roots (ccl_min_roots), and two plants from
+  the same min-index image, the first for cc, the second for the
+  labels. The outputs are the same; one whole CCL per window is saved.
+  Past PAINT_CAP_N it takes the reference's else-branch: ccl_paint for
+  cc, then a gather.
 
   Returns (labels (B, sy*sx) uint32, cc int32, N int32), all on the
   inputs' device."""
@@ -173,17 +174,18 @@ def pins_labels_from_vcg(vcg, pin_locs, pin_labs, single_ids, single_labs,
                          bg32: int, cap_n: int):
   """The CCL and label paint of decode_slices_full_pins on a window's
   VCG (B, sy, sx) int32, in two spans: decode.pins_ccl (the CCL and the
-  first-visit ids) and decode.pins_paint (the label table and the
-  paint), which counts the window's pin and single table slots
-  (pins_slots). Returns (labels (B, sy*sx) uint32, cc int32, N int32),
-  all on vcg's device."""
+  first-visit ids), which counts the slices whose roots the CCL's rank
+  pass wrote (pins_roots_fused; none past PAINT_CAP_N), and
+  decode.pins_paint (the label table and the paint), which counts the
+  window's pin and single table slots (pins_slots). Returns (labels
+  (B, sy*sx) uint32, cc int32, N int32), all on vcg's device."""
   dev = vcg.device
   plant_ok = cap_n <= _ccl.PAINT_CAP_N
   with span("decode.pins_ccl", dev):
     if plant_ok:
       cap2 = _ccl._pow2_cap(cap_n)
-      L, tgt = _ccl.ccl_min(vcg)
-      roots, N = _ccl.roots_from_tgt(tgt, cap2)
+      L, roots, N = _ccl.ccl_min_roots(vcg, cap2)
+      count("pins_roots_fused", vcg.shape[0])
       cc, _ = _ccl.plant(L, roots)
     else:
       cc, N, _ = _ccl.ccl_paint(vcg)

@@ -219,6 +219,54 @@ def test_roots_and_plant_match_pallas_interpret(monkeypatch, K):
   np.testing.assert_array_equal(painted.numpy(), np.asarray(want_p))
 
 
+def _roots_cases():
+  """name -> (vcg, roots width): N below the width (padded with n), N
+  at it, N past it (ranks dropped), a 1 x 7 slice and B = 1."""
+  yy, xx = np.indices((4, 4))
+  board = labels_to_vcg(((yy + xx) % 2)[None])  # N = 16
+  return {
+    "below": (_v2_inputs(11), 512),
+    "equal": (board, 16),
+    "above": (_v2_inputs(12), 64),
+    "1x7": (_v2_inputs(8, 2, 1, 7), 8),
+    "B1": (_v2_inputs(13, 1), 512),
+  }
+
+
+@pytest.mark.parametrize("name", sorted(_roots_cases()))
+def test_ccl_min_roots_matches_pallas_interpret(monkeypatch, name):
+  """ccl_min_roots equals ccl_pallas.ccl_min_traced followed by
+  ccl_pallas.roots_from_tgt: L, the roots and N (the full count where
+  it passes the width, as the port's roots_from_tgt gives it)."""
+  monkeypatch.setattr(ccl_pallas, "INTERPRET", True)
+  vcg, cap = _roots_cases()[name]
+  B, sy, sx = vcg.shape
+  want_L, tgt = ccl_pallas.ccl_min_traced(
+    jnp.asarray(vcg.reshape(B, -1)), sx, sy)
+  want_roots, want_N = ccl_pallas.roots_from_tgt(tgt, cap)
+  L, roots, N = ccl.ccl_min_roots(torch.from_numpy(vcg), cap)
+  assert roots.dtype == N.dtype == torch.int32 and roots.shape == (B, cap)
+  np.testing.assert_array_equal(L.numpy(), np.asarray(want_L))
+  np.testing.assert_array_equal(roots.numpy(), np.asarray(want_roots))
+  np.testing.assert_array_equal(N.numpy(), np.asarray(want_N))
+  for got, want in zip((roots, N), ccl.roots_from_tgt(
+      torch.from_numpy(np.array(tgt)), cap)):
+    assert torch.equal(got, want)
+  n_max = int(N.max())
+  assert {"below": n_max < cap, "equal": n_max == cap,
+          "above": n_max > cap}.get(name, True)
+  if n_max < cap:
+    assert int(roots[N.argmax(), -1]) == sy * sx
+
+
+def test_ccl_min_roots_rejects_bad_inputs():
+  vcg = torch.zeros((2, 4, 4), dtype=torch.int32)
+  with pytest.raises(ValueError):
+    ccl.ccl_min_roots(vcg.to(torch.int64), 8)
+  with pytest.raises(ValueError):
+    ccl.ccl_min_roots(vcg, 0)
+
+
 @pytest.mark.parametrize("cap_n", [512, 300])
 def test_ccl_paint_v2_matches_v1(cap_n):
   """test_jax_decode.test_ccl_v2_plant_matches_v1 for the port: the v2

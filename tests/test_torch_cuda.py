@@ -477,6 +477,52 @@ def test_ccl_min_and_plant_match_plain(dev, sy, sx):
              ccl.ccl_paint(vcg.to(dev), T.to(dev)))
 
 
+@pytest.mark.parametrize("tile", [None, 32])
+@pytest.mark.parametrize("sy,sx", [(37, 29), (64, 512), (1, 7)])
+def test_ccl_min_roots_matches_plain(dev, monkeypatch, sy, sx, tile):
+  """ccl_min_roots bit-equal to its plain version (ccl_min_plain, then
+  roots_from_tgt) with N below, at and past the roots' width; at 32-pixel
+  tiles the roots land in many tiles and the last tile, which pads
+  them, is not the first."""
+  if tile:
+    monkeypatch.setattr(ccl, "TILE_PIX", tile)
+  rng = np.random.RandomState(sy + sx)
+  for vcg in (labels_to_vcg(smooth_labels(3, sy, sx, 6, sy)),
+              (rng.randint(0, 16, size=(3, sy, sx)) & 0b1010)
+              .astype(np.int32)):
+    vcg = torch.from_numpy(vcg)
+    n_max = int(ccl.ccl_plain(vcg)[1].max())
+    for cap in {ccl._pow2_cap(n_max), n_max, max(n_max // 2, 1), 1}:
+      got = ccl.ccl_min_roots(vcg.to(dev), cap)
+      torch.cuda.synchronize()
+      _equal(got, ccl.ccl_min_roots(vcg, cap))
+
+
+def test_pins_roots_from_the_rank_pass_at_512(dev, monkeypatch):
+  """A 512^3 pins window whose roots come from ccl_min_roots gives the
+  labels, cc and N of ccl_min -> roots_from_tgt -> plant."""
+  from crackle_tpu_torch import codec
+  vol = blocky_volume((512, 512, 512), 23)
+  binary = codec.compress(_on_card(vol, dev), allow_pins=1)
+  del vol
+  assert codec.header(binary).label_format == 2
+  st = teng.upload_stream(binary, dev)
+  assert st.pins[5] <= ccl.PAINT_CAP_N
+  ct.reset_launches()
+  got = st.decode_window(0, 512, check_crcs=True)
+  assert ct.LAUNCHES["ccl_min_roots"] == 1
+
+  def composed(vcg, cap_n):
+    L, tgt = ccl.ccl_min(vcg)
+    return (L,) + ccl.roots_from_tgt(tgt, cap_n)
+
+  monkeypatch.setattr(ccl, "ccl_min_roots", composed)
+  ct.reset_launches()
+  want = st.decode_window(0, 512, check_crcs=True)
+  assert ct.LAUNCHES["ccl_min_roots"] == 0
+  _equal(got, want)
+
+
 def test_plant_misses_match_plain(dev):
   """Ids that no root holds, roots padding (n) and ids outside [0, n)
   plant 0 in the kernel as in the plain version."""
@@ -615,12 +661,20 @@ def test_slice_stats_at_band_seams(dev, monkeypatch, name, band_rows):
 
 
 def test_pins_stream_matches_cpu(dev):
-  """A condensed-pins stream decodes on the card as on the CPU."""
+  """A condensed-pins stream decodes on the card as on the CPU; under
+  recording() the window's 10 slices count as pins_roots_fused inside
+  decode.pins_ccl, with one ccl_min_roots launch."""
+  from crackle_tpu_torch.utils import profiling
   binary = crackle.compress(pins_volume(), allow_pins=1)
   assert crackle.header(binary).label_format == 2
+  st = ct.upload_stream(binary, dev)
   ct.reset_launches()
-  got = ct.upload_stream(binary, dev).decode_window(0, 10, check_crcs=True)
-  assert ct.LAUNCHES["ccl_min"] == 1 and ct.LAUNCHES["plant"] == 2
+  with profiling.recording():
+    got = st.decode_window(0, 10, check_crcs=True)
+  assert ct.LAUNCHES["ccl_min_roots"] == 1 and ct.LAUNCHES["plant"] == 2
+  assert ct.LAUNCHES["ccl_min"] == 0
+  (s,) = [s for s in profiling.spans() if s.name == "decode.pins_ccl"]
+  assert s.counters == {"pins_roots_fused": 10}
   _equal(got, ct.upload_stream(binary, "cpu").decode_window(0, 10))
 
 
@@ -883,7 +937,7 @@ def test_sharded_decode_on_card(dev, numpy_engine, shards, name):
   np.testing.assert_array_equal(got, numpy_engine.decompress(binary))
   np.testing.assert_array_equal(got, vol)
   per_shard = {"replay_keys": 1, "replay_positions": 1, "paint_vcg": 1}
-  per_shard.update({"ccl_min": 1, "plant": 2}
+  per_shard.update({"ccl_min_roots": 1, "plant": 2}
                    if crackle.header(binary).label_format == 2
                    else {"ccl_paint": 1})
   assert {k: v for k, v in ct.LAUNCHES.items() if v} == {
@@ -1088,7 +1142,7 @@ def test_crackle_array_on_card(dev, numpy_engine, name):
     for k, w in zip(keys, want):
       np.testing.assert_array_equal(arr[k], w)
     assert ct.LAUNCHES["replay_keys"] > 0
-    assert ct.LAUNCHES["ccl_paint" if name == "flat" else "ccl_min"] > 0
+    assert ct.LAUNCHES["ccl_paint" if name == "flat" else "ccl_min_roots"] > 0
     if name == "flat":
       _edit(arr, vol)
       assert arr.binary == host.binary

@@ -170,9 +170,10 @@ def pins_stream():
 
 
 def test_pins_decode_spans_split_the_ccl_and_the_paint(tracing):
-  """A resident pins window: decode.pins_ccl, then decode.pins_paint
-  with the window's table slots, once each inside decode.replay_ccl;
-  one host sync a request, the gate's."""
+  """A resident pins window: decode.pins_ccl with the window's slices
+  as the roots its rank pass wrote, then decode.pins_paint with the
+  window's table slots, once each inside decode.replay_ccl; one host
+  sync a request, the gate's."""
   binary = pins_stream()
   st = engine.upload_stream(binary, "cpu")
   with tracing():
@@ -189,8 +190,26 @@ def test_pins_decode_spans_split_the_ccl_and_the_paint(tracing):
       assert ancestors(recs, s) == ["decode.replay_ccl",
                                     "DeviceStream.decode_window"]
     slots = sum(t[z0:z1].numel() for t in (st.pins[0], st.pins[2]))
+    assert kids[1].counters == {"pins_roots_fused": z1 - z0}
     assert kids[2].counters == {"pins_slots": slots}
     assert sum(s.counters.get("host_syncs", 0) for s in kids) == 1
+
+
+def test_pins_window_past_the_paint_cap_counts_no_fused_roots(
+    monkeypatch):
+  """A pins window with more components a slice than PAINT_CAP_N takes
+  ccl_paint: decode.pins_ccl counts no pins_roots_fused, and the labels
+  are those of the fused path."""
+  from crackle_tpu_torch.kernels import ccl
+  st = engine.upload_stream(pins_stream(), "cpu")
+  want = st.decode_window(0, 10)
+  monkeypatch.setattr(ccl, "PAINT_CAP_N", st.pins[5] - 1)
+  with profiling.recording():
+    got = st.decode_window(0, 10)
+  (pins_ccl,) = [s for s in profiling.spans() if s.name == "decode.pins_ccl"]
+  assert pins_ccl.counters == {}
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
 
 
 def test_pins_window_decode_spans(torch_cpu):
